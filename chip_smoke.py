@@ -8,10 +8,14 @@ Phases, in order; any failure exits non-zero before the result line:
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: every CUDA kernel of ``fusioninfer_tpu_torch/csrc`` into
    ``build/kernels`` (one ``nvcc`` per source, in parallel);
-3. kernels against their plain PyTorch versions, in bf16 at the serve
-   path's shapes: max abs error against a stated bound, kernel / plain /
-   library (``scaled_dot_product_attention``) times by CUDA events, and
-   the least time the card could take (bytes or operations);
+3. kernels against their plain PyTorch versions, on bf16 pages and on
+   int8 pages with scales, at the serve path's shapes: the row error
+   against a stated bound, kernel / plain / library
+   (``scaled_dot_product_attention``, where it computes the same
+   function) times by CUDA events, and the least time the card could
+   take (bytes or operations).  The three standalone primitives (paged
+   decode, suffix prefill, verify) are first driven once each through
+   their ``ops`` entry points with the launch counts reset;
 4. serve ``qwen3-8b`` at full width (36 layers, random bf16 weights from
    a seed) through the port's HTTP server at ``--max-model-len 4096``:
    four requests, two of them SSE; every request must return its full
@@ -19,7 +23,11 @@ Phases, in order; any failure exits non-zero before the result line:
    full-sequence forward that runs none of the kernels, and the
    flash-prefill and split-KV decode kernels must have launched;
 5. the same weights at ``--max-model-len 2048``: decode takes the single
-   page walk, whose kernel must have launched.
+   page walk, whose kernel must have launched;
+6. the same weights with int8 KV pages (``--kv-cache-dtype int8``), at
+   ``--max-model-len 4096`` (the int8 split walk must launch; the plain
+   forward reads K/V through ``kv_quantize`` for the decoded rows, as
+   the engine's pages hold them) and at 2048 (the int8 single walk).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -55,10 +63,16 @@ PEAK_BYTES = 3.35e12
 RTOL = 1e-2
 FLASH_ROW_TOL = 2e-2  # P is rounded to bf16 for the P·V product
 PAGED_ROW_TOL = 2e-3  # f32 throughout; only the output is rounded
+# the query-window kernel (prefill, verify) rounds P, or P times the V
+# scale, to bf16 for its tensor-core P·V product, as flash does
+WINDOW_ROW_TOL = 2e-2
 
 SEED = 0
 N_REQUESTS_PROMPTS = (64, 300, 800, 1500)  # byte-tokens per prompt
 MAX_TOKENS = 32
+# the served batch's decode contexts (tokens incl. the new one), ps 128
+DECODE_CTX = (100, 600, 1100, 1600, 2100, 2600, 3300, 4000)
+KV_HEADS, GROUP, HEAD_DIM, PAGE = 8, 4, 128, 128
 
 
 def log(msg: str) -> None:
@@ -206,17 +220,16 @@ def check_flash(gen, B: int, S: int) -> dict:
             "bound_by": bound_by}
 
 
-def paged_case(gen, multi_token: bool):
-    """8 decode rows with contexts spread over 100…4000 tokens (the decode
-    step of the served batch), with ``multi_token`` plus one 64-token row
-    (a prefill chunk at position 1000); ps 128, a two-layer pool read at
-    layer 1, max_pages_per_seq 32 (max context 4096)."""
+def paged_pool(gen, rows, int8: bool, L: int = 2, mp: int = 32):
+    """A stacked ``[L, KV, n_pages, ps, Hd]`` pool (random bf16, or int8
+    with f32 scales from ``kv_quantize``) holding the pages of ``rows``
+    ``[(start, n)]``, each row on its own randomly placed pages:
+    ``(k, v, k_scales, v_scales, page_tables [R, mp])``."""
     import torch
 
-    KV, G, Hd, ps, mp, L = 8, 4, 128, 128, 32, 2
-    ctx = [100, 600, 1100, 1600, 2100, 2600, 3300, 4000]  # tokens incl. the new one
-    rows = [(c - 1, 1) for c in ctx] + ([(1000, 64)] if multi_token else [])
-    need = [-(-(s + n) // ps) for s, n in rows]
+    from fusioninfer_tpu_torch.models.quantization import kv_quantize
+
+    need = [-(-(s + n) // PAGE) for s, n in rows]
     n_pages = sum(need) + 1
     perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(SEED))
     tables = torch.full((len(rows), mp), n_pages - 1, dtype=torch.int32)
@@ -224,91 +237,227 @@ def paged_case(gen, multi_token: bool):
     for r, n in enumerate(need):
         for i in range(n):
             tables[r, i] = next(it)
-    q_lens = torch.tensor([n for _, n in rows], dtype=torch.int32)
-    q_begins = torch.cumsum(q_lens, 0, dtype=torch.int32) - q_lens
-    starts = torch.tensor([s for s, _ in rows], dtype=torch.int32)
-    T = int(q_lens.sum())
-    dev = "cuda"
-    q = torch.randn((T, KV * G, Hd), generator=gen, device=dev).to(torch.bfloat16)
-    kp = torch.randn((L, KV, n_pages, ps, Hd), generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn((L, KV, n_pages, ps, Hd), generator=gen, device=dev).to(torch.bfloat16)
-    desc = tuple(t.to(dev) for t in (tables, starts, q_begins, q_lens))
-    keys = sum((s + n) for s, n in rows)  # live keys per KV head
-    pairs = sum(n * s + n * (n + 1) / 2 for s, n in rows)  # (query token, key) pairs
-    flops = 4 * pairs * KV * G * Hd
-    nbytes = 2 * (2 * keys * KV * Hd + 2 * T * KV * G * Hd)
-    return q, kp, vp, desc, rows, flops, nbytes
+    shape = (L, KV_HEADS, n_pages, PAGE, HEAD_DIM)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    if not int8:
+        return kp, vp, None, None, tables.cuda()
+    (k8, ks), (v8, vs) = kv_quantize(kp), kv_quantize(vp)
+    return (k8, v8, ks[..., None, :].contiguous(), vs[..., None, :].contiguous(),
+            tables.cuda())
 
 
-def check_paged(gen, split: bool) -> dict:
-    """Kernel against plain version on the mixed case (decode rows plus a
-    multi-token row), then times at the decode step's shape."""
+def attention_cost(rows, int8: bool) -> tuple[float, float]:
+    """(FLOP, bytes) of causal paged attention for rows ``[(start, n)]``:
+    each live K/V byte read once (int8 pages: Hd codes + one f32 scale
+    per token and head), each query read and each output written once."""
+    H = KV_HEADS * GROUP
+    keys = sum(s + n for s, n in rows)  # live keys per KV head
+    pairs = sum(n * s + n * (n + 1) / 2 for s, n in rows)  # (query, key) pairs
+    T = sum(n for _, n in rows)
+    per_key = HEAD_DIM + 4 if int8 else 2 * HEAD_DIM
+    return 4 * pairs * H * HEAD_DIM, 2 * keys * KV_HEADS * per_key + 2 * T * H * HEAD_DIM * 2
+
+
+def sdpa_calls(q_flat, kp, vp, tables, rows):
+    """The library yardstick's calls: one SDPA per row over that row's
+    live keys, gathered from the bf16 pages of one layer beforehand (the
+    gather is not timed); q_flat ``[T, H, Hd]`` holds the rows' tokens in
+    order."""
+    import torch
+
+    calls, t0 = [], 0
+    for r, (start, n) in enumerate(rows):
+        n_keys = start + n
+        pages = tables[r, : -(-n_keys // PAGE)].long()
+        k_r = kp[:, pages].reshape(KV_HEADS, -1, HEAD_DIM)[None, :, :n_keys]
+        v_r = vp[:, pages].reshape(KV_HEADS, -1, HEAD_DIM)[None, :, :n_keys]
+        q_r = q_flat[t0: t0 + n].transpose(0, 1)[None]
+        kw = {}
+        if n > 1:  # token i of the row sees keys [0, start + i]
+            kw["attn_mask"] = (torch.arange(n_keys, device=q_flat.device)[None, :]
+                               <= start + torch.arange(n, device=q_flat.device)[:, None])
+        calls.append((q_r, k_r.contiguous(), v_r.contiguous(), kw))
+        t0 += n
+    return calls
+
+
+def measure(name: str, shape: str, kern, plain, row_tol: float, rows, int8: bool,
+            library) -> dict:
+    """Kernel against plain version (``check_close``), then kernel ms (CUDA
+    graph), plain ms, library ms (``library()`` gives the SDPA calls, or
+    None where no PyTorch call computes the same function) and bound."""
+    err, row_err = check_close(kern(), plain(), f"{name} [{shape}]", row_tol, HEAD_DIM)
+    ms = time_graph(kern)
+    plain_ms = time_events(plain, reps=20, warmup=2)
+    calls = library()
+    library_ms = time_library(calls, GROUP) if calls is not None else None
+    bound_ms, bound_by = bound(*attention_cost(rows, int8))
+    log(f"  {name} [{shape}]: abs err {err:.3e} row err {row_err:.3e} (bound {row_tol}) "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {library_ms} ms "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"shape": shape, "max_abs_err": err, "max_row_err": row_err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_paged(gen, split: bool, int8: bool = False) -> dict:
+    """A ragged walk against its plain version on the mixed case (the 8
+    decode rows plus a 64-token prefill-chunk row at position 1000), then
+    at the decode step's shape (8 decode rows, contexts 100…4000), whose
+    numbers it returns; a two-layer pool read at layer 1, max context
+    4096."""
     import torch
 
     from fusioninfer_tpu_torch.ops import paged_attention as pa
 
     layer = 1
-    name = "split-KV" if split else "single walk"
+    name = ("split-KV" if split else "single walk") + (" int8" if int8 else "")
+    walk = pa.ragged_paged_attention_kvsplit if split else pa.ragged_paged_attention
+    plain_walk = (pa.reference_ragged_paged_attention_kvsplit if split
+                  else pa.reference_ragged_paged_attention)
     result = {}
     for multi_token in (True, False):
-        q, kp, vp, desc, rows, flops, nbytes = paged_case(gen, multi_token)
-        if split:
-            def kern():
-                return pa.ragged_paged_attention_kvsplit(q, kp, vp, *desc, layer=layer)
+        rows = [(c - 1, 1) for c in DECODE_CTX] + ([(1000, 64)] if multi_token else [])
+        kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+        q_lens = torch.tensor([n for _, n in rows], dtype=torch.int32)
+        q_begins = torch.cumsum(q_lens, 0, dtype=torch.int32) - q_lens
+        starts = torch.tensor([s for s, _ in rows], dtype=torch.int32)
+        desc = (tables, *(t.cuda() for t in (starts, q_begins, q_lens)))
+        q = torch.randn((int(q_lens.sum()), KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        scales = (ks, vs) if int8 else ()
+        layer_scales = (ks[layer], vs[layer]) if int8 else ()
 
-            def plain():
-                return pa.reference_ragged_paged_attention_kvsplit(
-                    q, kp[layer], vp[layer], *desc)
-        else:
-            def kern():
-                return pa.ragged_paged_attention(q, kp, vp, *desc, layer=layer)
+        def kern():
+            return walk(q, kp, vp, *desc, *scales, layer=layer)
 
-            def plain():
-                return pa.reference_ragged_paged_attention(q, kp[layer], vp[layer], *desc)
-        T, H, Hd = q.shape
-        err, row_err = check_close(kern(), plain(), f"paged {name} multi_token={multi_token}",
-                                   PAGED_ROW_TOL, Hd)
-        ms = time_graph(kern)
-        plain_ms = time_events(plain, reps=20, warmup=2)
-        # library yardstick: one SDPA call per row over that row's live
-        # keys, gathered from the pages beforehand (the gather is not timed)
-        KV = kp.shape[1]
-        tables, starts, _, _ = desc
-        ps = kp.shape[3]
-        calls, t0 = [], 0
-        for r, (start, n) in enumerate(rows):
-            n_keys = start + n
-            pages = tables[r, : -(-n_keys // ps)].long()
-            k_r = kp[layer][:, pages].reshape(KV, -1, Hd)[None, :, :n_keys]
-            v_r = vp[layer][:, pages].reshape(KV, -1, Hd)[None, :, :n_keys]
-            q_r = q[t0: t0 + n].transpose(0, 1)[None]
-            kw = {}
-            if n > 1:  # token i of the row sees keys [0, start + i]
-                kw["attn_mask"] = (torch.arange(n_keys, device=q.device)[None, :]
-                                   <= start + torch.arange(n, device=q.device)[:, None])
-            calls.append((q_r, k_r.contiguous(), v_r.contiguous(), kw))
-            t0 += n
-        library_ms = time_library(calls, H // KV)
-        bound_ms, bound_by = bound(flops, nbytes)
-        shape = (f"T{T}: 8 decode rows ctx 100..4000"
-                 + (" + a 64-token row at 1000" if multi_token else "") + ", ps 128")
-        log(f"  paged {name} [{shape}]: abs err {err:.3e} row err {row_err:.3e} "
-            f"(bound {PAGED_ROW_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"sdpa {library_ms} ms bound {bound_ms:.4f} ms ({bound_by})")
-        result = {"shape": shape, "max_abs_err": max(err, result.get("max_abs_err", 0.0)),
-                  "max_row_err": max(row_err, result.get("max_row_err", 0.0)),
-                  "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "mixed_case": result or None}
+        def plain():
+            return plain_walk(q, kp[layer], vp[layer], *desc, *layer_scales)
+
+        shape = (f"T{q.shape[0]}: 8 decode rows ctx 100..4000"
+                 + (" + a 64-token row at 1000" if multi_token else "") + ", ps 128"
+                 + (", int8 pages" if int8 else ""))
+        res = measure(f"paged {name}", shape, kern, plain, PAGED_ROW_TOL, rows, int8,
+                      lambda: None if int8 else sdpa_calls(q, kp[layer], vp[layer],
+                                                           tables, rows))
+        res["max_abs_err"] = max(res["max_abs_err"], result.get("max_abs_err", 0.0))
+        res["max_row_err"] = max(res["max_row_err"], result.get("max_row_err", 0.0))
+        result = {**res, "mixed_case": result or None}
     return result
+
+
+def primitive_cases(gen) -> list[dict]:
+    """The three standalone primitives at the stated shapes, each on bf16
+    and on int8 pages (two-layer pools read at layer 1): paged decode of
+    8 sequences with contexts 100…4000; verify windows of 8 queries ending
+    at those contexts; a 512-query suffix prefill at position 1024.  Each
+    case holds its entry-point call, its plain version, its rows
+    ``[(start, n)]`` and its row tolerance."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    H, layer, cases = KV_HEADS * GROUP, 1, []
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for int8 in (False, True):
+        sfx = "_int8" if int8 else ""
+        pages = " ps 128" + (", int8 pages" if int8 else "")
+        # paged decode
+        rows = [(c - 1, 1) for c in DECODE_CTX]
+        kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+        lengths = torch.tensor(DECODE_CTX, dtype=torch.int32, device="cuda")
+        q = rnd(len(rows), H, HEAD_DIM)
+        sc = (ks, vs) if int8 else ()
+        lsc = (ks[layer], vs[layer]) if int8 else ()
+        cases.append({
+            "name": "paged_decode_attention" + sfx, "rows": rows, "int8": int8,
+            "shape": f"B8 ctx 100..4000,{pages}", "row_tol": PAGED_ROW_TOL,
+            "q_flat": q, "pool": (kp[layer], vp[layer], tables),
+            "kern": lambda q=q, kp=kp, vp=vp, t=tables, n=lengths, sc=sc:
+                pa.paged_decode_attention(q, kp, vp, t, n, *sc, layer=layer),
+            "plain": lambda q=q, kp=kp, vp=vp, t=tables, n=lengths, sc=lsc:
+                pa.reference_paged_attention(q, kp[layer], vp[layer], t, n, *sc)})
+        # verify: windows of 8 queries ending at the decode contexts
+        C = 8
+        rows = [(c - C, C) for c in DECODE_CTX]
+        kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+        starts = torch.tensor([s for s, _ in rows], dtype=torch.int32, device="cuda")
+        counts = torch.full((len(rows),), C, dtype=torch.int32, device="cuda")
+        q = rnd(len(rows), C, H, HEAD_DIM)
+        sc = (ks, vs) if int8 else ()
+        lsc = (ks[layer], vs[layer]) if int8 else ()
+        cases.append({
+            "name": "paged_verify_attention" + sfx, "rows": rows, "int8": int8,
+            "shape": f"B8 C8 ending at ctx 100..4000,{pages}", "row_tol": WINDOW_ROW_TOL,
+            "q_flat": q.reshape(-1, H, HEAD_DIM), "pool": (kp[layer], vp[layer], tables),
+            "kern": lambda q=q, kp=kp, vp=vp, t=tables, s=starts, c=counts, sc=sc:
+                pa.paged_verify_attention(q, kp, vp, t, s, c, *sc, layer=layer),
+            "plain": lambda q=q, kp=kp, vp=vp, t=tables, s=starts, c=counts, sc=lsc:
+                pa.reference_paged_verify_attention(q, kp[layer], vp[layer], t, s, c,
+                                                    *sc)})
+        # suffix prefill: 512 queries at position 1024
+        rows = [(1024, 512)]
+        kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+        q = rnd(512, H, HEAD_DIM)
+        # on the card, so that a CUDA graph can capture the call
+        start, true_len = (torch.tensor([x], dtype=torch.int32, device="cuda")
+                           for x in rows[0])
+        sc = (ks, vs) if int8 else ()
+        lsc = (ks[layer], vs[layer]) if int8 else ()
+        cases.append({
+            "name": "paged_prefill_attention" + sfx, "rows": rows, "int8": int8,
+            "shape": f"C512 at start 1024,{pages}", "row_tol": WINDOW_ROW_TOL,
+            "q_flat": q, "pool": (kp[layer], vp[layer], tables),
+            "kern": lambda q=q, kp=kp, vp=vp, t=tables, s=start, n=true_len, sc=sc:
+                pa.paged_prefill_attention(q, kp, vp, t[0], s, n, *sc, layer=layer),
+            "plain": lambda q=q, kp=kp, vp=vp, t=tables, s=start, n=true_len, sc=lsc:
+                pa.reference_paged_prefill_attention(q, kp[layer], vp[layer], t[0], s, n,
+                                                     *sc)})
+    return cases
+
+
+def drive_primitives(cases) -> dict[str, int]:
+    """Path (b): each primitive's entry point called once per page type,
+    with every launch count set to 0 just before; the outputs must be
+    finite and of the expected shape.  Returns the counts."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    dispatch.reset_launches()
+    outs = [case["kern"]() for case in cases]
+    torch.cuda.synchronize()
+    launches = dispatch.launches()
+    for case, out in zip(cases, outs):
+        n_tok = sum(n for _, n in case["rows"])
+        if out.numel() != n_tok * KV_HEADS * GROUP * HEAD_DIM or not torch.isfinite(out).all():
+            raise AssertionError(f"{case['name']}: output {tuple(out.shape)} "
+                                 "not finite or not of the expected size")
+        if launches[case["name"]] == 0:
+            raise AssertionError(f"{case['name']} did not launch: {launches}")
+    return launches
+
+
+def check_primitive(case) -> dict:
+    kp, vp, tables = case["pool"]
+    return measure(case["name"], case["shape"], case["kern"], case["plain"],
+                   case["row_tol"], case["rows"], case["int8"],
+                   lambda: None if case["int8"] else sdpa_calls(
+                       case["q_flat"], kp, vp, tables, case["rows"]))
 
 
 def check_variants(gen) -> int:
     """Untimed kernel-against-plain checks of what the served shapes do not
     reach: sliding windows, sequence lengths off the 64-row tile, head_dim
-    64 and query groups 1, 2 and 8.  Returns the number of cases."""
+    64, query groups 1, 2 and 8, page size 16, inactive slots and padding
+    rows, on bf16 and int8 pages.  Returns the number of cases."""
     import torch
 
+    from fusioninfer_tpu_torch.models.quantization import kv_quantize
     from fusioninfer_tpu_torch.ops import flash_attention as fa
     from fusioninfer_tpu_torch.ops import paged_attention as pa
 
@@ -330,21 +479,55 @@ def check_variants(gen) -> int:
     starts = torch.tensor([s0 for s0, _ in rows], dtype=torch.int32)
     n_pages = len(rows) * mp + 1
     tables = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(SEED))
-    tables = tables[: len(rows) * mp].reshape(len(rows), mp).to(torch.int32)
-    desc = tuple(x.cuda() for x in (tables, starts, q_begins, q_lens))
+    tables = tables[: len(rows) * mp].reshape(len(rows), mp).to(torch.int32).cuda()
+    desc = (tables, *(x.cuda() for x in (starts, q_begins, q_lens)))
     T = int(q_lens.sum())
+    lengths = torch.tensor([38, 0, 21, 64, 301, 1], dtype=torch.int32, device="cuda")
+    # verify windows: a full one, an inactive slot, one with padding rows
+    w_starts = torch.tensor([37, 0, 300], dtype=torch.int32, device="cuda")
+    w_counts = torch.tensor([24, 0, 7], dtype=torch.int32, device="cuda")
     for G, Hd, window in [(2, 64, None), (2, 64, 24), (1, 128, None), (8, 128, 50)]:
         KV = 2
         q = rnd(T, KV * G, Hd)
         kp, vp = rnd(2, KV, n_pages, ps, Hd), rnd(2, KV, n_pages, ps, Hd)
-        check_close(pa.ragged_paged_attention(q, kp, vp, *desc, window=window, layer=0),
-                    pa.reference_ragged_paged_attention(q, kp[0], vp[0], *desc, window=window),
-                    f"single walk G{G} Hd{Hd} window {window}", PAGED_ROW_TOL, Hd)
-        check_close(pa.ragged_paged_attention_kvsplit(q, kp, vp, *desc, window=window, layer=1),
-                    pa.reference_ragged_paged_attention_kvsplit(q, kp[1], vp[1], *desc,
-                                                                window=window),
-                    f"split walk G{G} Hd{Hd} window {window}", PAGED_ROW_TOL, Hd)
-        n += 2
+        for int8 in (False, True):
+            if int8:
+                (kp, ks), (vp, vs) = kv_quantize(kp), kv_quantize(vp)
+                sc = (ks[..., None, :].contiguous(), vs[..., None, :].contiguous())
+            else:
+                sc = ()
+            lsc = tuple(x[1] for x in sc)
+            tag = f"G{G} Hd{Hd} window {window}" + (" int8" if int8 else "")
+            check_close(pa.ragged_paged_attention(q, kp, vp, *desc, *sc, window=window,
+                                                  layer=1),
+                        pa.reference_ragged_paged_attention(q, kp[1], vp[1], *desc, *lsc,
+                                                            window=window),
+                        f"single walk {tag}", PAGED_ROW_TOL, Hd)
+            check_close(pa.ragged_paged_attention_kvsplit(q, kp, vp, *desc, *sc,
+                                                          window=window, layer=1),
+                        pa.reference_ragged_paged_attention_kvsplit(
+                            q, kp[1], vp[1], *desc, *lsc, window=window),
+                        f"split walk {tag}", PAGED_ROW_TOL, Hd)
+            qd = rnd(len(rows), KV * G, Hd)
+            check_close(pa.paged_decode_attention(qd, kp, vp, tables, lengths, *sc,
+                                                  window=window, layer=1),
+                        pa.reference_paged_attention(qd, kp[1], vp[1], tables, lengths,
+                                                     *lsc, window=window),
+                        f"paged decode {tag}", PAGED_ROW_TOL, Hd)
+            qv = rnd(3, 24, KV * G, Hd)
+            check_close(pa.paged_verify_attention(qv, kp, vp, tables[:3], w_starts,
+                                                  w_counts, *sc, window=window, layer=1),
+                        pa.reference_paged_verify_attention(qv, kp[1], vp[1], tables[:3],
+                                                            w_starts, w_counts, *lsc,
+                                                            window=window),
+                        f"verify {tag}", WINDOW_ROW_TOL, Hd)
+            qp = rnd(100, KV * G, Hd)
+            check_close(pa.paged_prefill_attention(qp, kp, vp, tables[4], 150, 77, *sc,
+                                                   window=window, layer=1),
+                        pa.reference_paged_prefill_attention(qp, kp[1], vp[1], tables[4],
+                                                             150, 77, *lsc, window=window),
+                        f"suffix prefill {tag}", WINDOW_ROW_TOL, Hd)
+            n += 5
     return n
 
 
@@ -419,14 +602,22 @@ def drive_server(engine, prompts) -> list[dict]:
     return results
 
 
-def plain_forward(cfg, params, tokens):
+def plain_forward(cfg, params, tokens, int8_from: int | None = None):
     """Full-sequence causal forward → f32 logits, with the plain attention
     (``reference_attention``) in place of the flash kernel and no pages:
-    no hand-written kernel runs in it."""
+    no hand-written kernel runs in it.  With ``int8_from``, query rows from
+    that position on attend over K/V passed through ``kv_quantize`` and
+    back, as an engine with int8 pages decodes them (its prefill rows
+    attend over the exact K/V)."""
     import torch
 
     from fusioninfer_tpu_torch.models import transformer as tf
+    from fusioninfer_tpu_torch.models.quantization import kv_quantize
     from fusioninfer_tpu_torch.ops.flash_attention import reference_attention
+
+    def dequant(x):
+        x8, scale = kv_quantize(x)
+        return x8.float() * scale[..., None]
 
     x = tf.embed_lookup(params["embed"], tokens)
     rope = tf.rope_tables(torch.arange(tokens.shape[1], device=tokens.device),
@@ -434,8 +625,12 @@ def plain_forward(cfg, params, tokens):
     for l in range(cfg.n_layers):
         layer = tf.layer_params(params, l)
         q, k, v = tf.qkv_proj(cfg, layer, x, rope)
-        x = x + reference_attention(q, k, v, causal=True,
-                                    window=cfg.sliding_window) @ layer["wo"]
+        attn = reference_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        if int8_from is not None:
+            attn8 = reference_attention(q, dequant(k), dequant(v), causal=True,
+                                        window=cfg.sliding_window)
+            attn = torch.cat([attn[:, :int8_from], attn8[:, int8_from:]], dim=1)
+        x = x + attn @ layer["wo"]
         x = x + tf.mlp_block(cfg, layer, x)
     return tf.lm_head(cfg, params, tf.rms_norm(x, params["final_norm"], cfg.rms_eps))
 
@@ -443,8 +638,9 @@ def plain_forward(cfg, params, tokens):
 def check_greedy(engine, results) -> float:
     """The served tokens of each SSE request (flash prefill, paged decode)
     must be the greedy choice of :func:`plain_forward` over the prompt and
-    the served tokens: the served token's logit within ``tol`` of the
-    row's max (bf16 kernels and the f32-math plain attention round
+    the served tokens (with int8 K/V for the decoded rows when the
+    engine's pages are int8): the served token's logit within ``tol`` of
+    the row's max (bf16 kernels and the f32-math plain attention round
     differently, and random weights leave near-ties).  Returns the largest
     gap seen."""
     import torch
@@ -461,7 +657,9 @@ def check_greedy(engine, results) -> float:
         seq = prompt + r["token_ids"]
         x = torch.tensor([seq[:-1]], device=engine.device)
         with torch.no_grad():
-            logits = plain_forward(engine.cfg, engine.params, x)[0, len(prompt) - 1:]
+            logits = plain_forward(engine.cfg, engine.params, x,
+                                   len(prompt) if engine.cache_cfg.quantized else None)
+            logits = logits[0, len(prompt) - 1:]
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits in the reference forward")
         chosen = torch.tensor(r["token_ids"], device=logits.device)
@@ -539,6 +737,55 @@ def profile_decode(engine, n_steps: int = 8) -> dict:
                                         for e in top}}
 
 
+def serve_leg(engine, prompts, must_launch: tuple[str, ...]) -> dict:
+    """Warm the engine up, then serve the prompts through the HTTP server
+    with every launch count set to 0 just before; the kernels in
+    ``must_launch`` must have launched and the SSE tokens must pass
+    :func:`check_greedy`."""
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    t0 = time.perf_counter()
+    warm_up(engine, prompts)
+    warm_s = time.perf_counter() - t0
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    res = drive_server(engine, prompts)
+    wall = time.perf_counter() - t0
+    launches = dispatch.launches()
+    missing = [k for k in must_launch if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve path did not launch {missing}: {launches}")
+    gap = check_greedy(engine, res)
+    ttft = [r["ttft_s"] for r in res if r["ttft_s"] is not None]
+    rates = [r["decode_tok_s"] for r in res if r["decode_tok_s"]]
+    total = sum(r["tokens"] for r in res)
+    log(f"  warm-up (first use of every GEMM shape and kernel) {warm_s:.3f} s; "
+        f"launches {launches}")
+    log(f"  {len(res)} requests x {MAX_TOKENS} tokens in {wall:.3f} s "
+        f"({total / wall:.1f} tok/s aggregate); SSE TTFT {[round(t, 4) for t in ttft]} s; "
+        f"SSE decode {[round(x, 1) for x in rates]} tok/s per stream; greedy gap {gap:.4f}")
+    return {"wall_s": wall, "launches": launches, "greedy_gap": gap, "ttft_s": ttft,
+            "decode_tok_s": rates,
+            "requests": [{k: v for k, v in r.items() if k not in ("prompt", "token_ids")}
+                         for r in res]}
+
+
+def log_profile(prof: dict, card: str) -> None:
+    share = prof["device_busy_share"]
+    log(f"  decode step, batch 8 (contexts 100..1500): {prof['wall_ms_per_step']:.3f} ms "
+        f"wall, {prof['device_ms_per_step']:.3f} ms on the device "
+        f"(busy share {share if share is None else round(share, 4)}) on {card}")
+    for name, ms in prof["top_kernels_ms_per_step"].items():
+        log(f"    {ms:8.4f} ms/step  {name}")
+
+
+def kernel_row(name: str, source: str, replaces: int, launches: int, res: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": f"fusioninfer_tpu_torch/csrc/{source}",
+            "replaces": f"fusioninfer_tpu/ops/{replaces}", "launches": launches,
+            **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
 def main() -> int:
     import torch
 
@@ -549,125 +796,117 @@ def main() -> int:
     from fusioninfer_tpu_torch.engine.engine import NativeEngine
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
-    from fusioninfer_tpu_torch.ops import _build, dispatch
+    from fusioninfer_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/6] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    log(f"[1/7] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     _build.build_all()
-    log(f"[2/6] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
+    log(f"[2/7] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log(f"[3/6] kernels against their plain versions (bf16, |err| <= {RTOL}·|ref| + "
-        f"row_tol·rms(row), row_tol {FLASH_ROW_TOL} flash / {PAGED_ROW_TOL} paged; "
-        f"times: median CUDA-event ms on {card})")
+    log(f"[3/7] kernels against their plain versions (bf16 and int8 pages, |err| <= "
+        f"{RTOL}·|ref| + row_tol·rms(row), row_tol {FLASH_ROW_TOL} flash / {PAGED_ROW_TOL} "
+        f"page walks and decode / {WINDOW_ROW_TOL} prefill and verify; times: median "
+        f"CUDA-event ms on {card})")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = primitive_cases(gen)
+    launches_b = drive_primitives(cases)
+    log(f"  primitives through their entry points: launches {launches_b}")
     flash = [check_flash(gen, 1, 2048), check_flash(gen, 4, 512)]
-    single = check_paged(gen, split=False)
-    split = check_paged(gen, split=True)
-    log(f"  {check_variants(gen)} further cases (windows, ragged S, Hd 64, G 1/2/8) "
-        "within the bound")
+    walks = {(split, int8): check_paged(gen, split, int8)
+             for int8 in (False, True) for split in (False, True)}
+    prims = {case["name"]: check_primitive(case) for case in cases}
+    log(f"  {check_variants(gen)} further cases (windows, ragged S, Hd 64, G 1/2/8, "
+        "ps 16, inactive and padding rows, int8) within the bound")
+    del cases
+    torch.cuda.empty_cache()
 
-    log("[4/6] serve qwen3-8b at full width, max-model-len 4096")
+    log("[4/7] serve qwen3-8b at full width, max-model-len 4096")
     cfg = get_preset("qwen3-8b")
     t0 = time.perf_counter()
-    cache_cfg = auto_cache_config(cfg, 128, 4096, 8, "cuda")
-    engine = NativeEngine(cfg, cache_cfg, max_batch_size=8, seed=SEED, device="cuda")
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda"),
+                          max_batch_size=8, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     log(f"  weights + pool ready in {time.perf_counter() - t0:.1f} s "
-        f"(kv_splits {engine.kv_splits}, {cache_cfg.n_pages} pages)")
+        f"(kv_splits {engine.kv_splits}, {engine.cache_cfg.n_pages} pages)")
     prompts = [("The quick brown fox jumps over the lazy dog. " * 40)[:n]
                for n in N_REQUESTS_PROMPTS]
-    t0 = time.perf_counter()
-    warm_up(engine, prompts)
-    log(f"  warm-up (first use of every GEMM shape and kernel): "
-        f"{time.perf_counter() - t0:.3f} s")
-    dispatch.reset_launches()
-    t0 = time.perf_counter()
-    res4 = drive_server(engine, prompts)
-    wall4 = time.perf_counter() - t0
-    launches4 = dispatch.launches()
-    log(f"  launches {launches4}")
-    if launches4["flash_attention"] == 0 or launches4["ragged_paged_attention_kvsplit"] == 0:
-        raise AssertionError(f"serve path did not launch flash + split-KV: {launches4}")
-    gap = check_greedy(engine, res4)
-    ttft = [r["ttft_s"] for r in res4 if r["ttft_s"] is not None]
-    rates = [r["decode_tok_s"] for r in res4 if r["decode_tok_s"]]
-    total = sum(r["tokens"] for r in res4)
-    log(f"  {len(res4)} requests x {MAX_TOKENS} tokens in {wall4:.3f} s "
-        f"({total / wall4:.1f} tok/s aggregate); SSE TTFT {[round(t, 4) for t in ttft]} s; "
-        f"SSE decode {[round(x, 1) for x in rates]} tok/s per stream; "
-        f"greedy gap {gap:.4f} on {card}")
-
-    prof = profile_decode(engine)
-    share = prof["device_busy_share"]
-    log(f"  decode step, batch 8 (contexts 100..1500): {prof['wall_ms_per_step']:.3f} ms "
-        f"wall, {prof['device_ms_per_step']:.3f} ms on the device "
-        f"(busy share {share if share is None else round(share, 4)}) on {card}")
-    for name, ms in prof["top_kernels_ms_per_step"].items():
-        log(f"    {ms:8.4f} ms/step  {name}")
-
-    log("[5/6] single page walk: same weights, max-model-len 2048")
+    serve4 = serve_leg(engine, prompts, ("flash_attention", "ragged_paged_attention_kvsplit"))
+    prof4 = profile_decode(engine)
+    log_profile(prof4, card)
     params = engine.params
     del engine
     torch.cuda.empty_cache()
-    cache2 = auto_cache_config(cfg, 128, 2048, 8, "cuda")
-    engine2 = NativeEngine(cfg, cache2, max_batch_size=8, params=params, device="cuda")
-    if engine2.kv_splits != 0:
-        raise AssertionError(f"expected the single walk at 2048, got kv_splits {engine2.kv_splits}")
-    prompts5 = prompts[:2] + [prompts[2][:600], prompts[3][:1000]]
-    warm_up(engine2, prompts5)
-    dispatch.reset_launches()
-    t0 = time.perf_counter()
-    res5 = drive_server(engine2, prompts5)
-    wall5 = time.perf_counter() - t0
-    launches5 = dispatch.launches()
-    log(f"  launches {launches5}; {len(res5)} requests in {wall5:.3f} s")
-    if launches5["ragged_paged_attention"] == 0 or launches5["flash_attention"] == 0:
-        raise AssertionError(f"2048 path did not launch flash + single walk: {launches5}")
-    gap5 = check_greedy(engine2, res5)
 
+    log("[5/7] single page walk: same weights, max-model-len 2048")
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda"),
+                          max_batch_size=8, params=params, device="cuda")
+    if engine.kv_splits != 0:
+        raise AssertionError(f"expected the single walk at 2048, got kv_splits {engine.kv_splits}")
+    prompts5 = prompts[:2] + [prompts[2][:600], prompts[3][:1000]]
+    serve5 = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention"))
+    del engine
+    torch.cuda.empty_cache()
+
+    log("[6/7] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
+        "then 2048")
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda", "int8"),
+                          max_batch_size=8, params=params, device="cuda")
+    if engine.kv_splits == 0 or engine.cache["k"].dtype != torch.int8:
+        raise AssertionError("expected int8 pages and the split walk at 4096")
+    serve6 = serve_leg(engine, prompts, ("flash_attention",
+                                         "ragged_paged_attention_kvsplit_int8"))
+    prof6 = profile_decode(engine)
+    log_profile(prof6, card)
+    del engine
+    torch.cuda.empty_cache()
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda", "int8"),
+                          max_batch_size=8, params=params, device="cuda")
+    serve6s = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention_int8"))
+
+    pa_py = "paged_attention.py"
     kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "fusioninfer_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "fusioninfer_tpu/ops/flash_attention.py:150",
-         "launches": launches4["flash_attention"],
-         **{k: flash[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}},
-        {"name": "ragged_paged_attention", "route": "cuda",
-         "source": "fusioninfer_tpu_torch/csrc/paged_attention.cu",
-         "replaces": "fusioninfer_tpu/ops/paged_attention.py:1250",
-         "launches": launches5["ragged_paged_attention"],
-         **{k: single[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")}},
-        {"name": "ragged_paged_attention_kvsplit", "route": "cuda",
-         "source": "fusioninfer_tpu_torch/csrc/paged_attention.cu",
-         "replaces": "fusioninfer_tpu/ops/paged_attention.py:1505",
-         "launches": launches4["ragged_paged_attention_kvsplit"],
-         **{k: split[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms")}},
+        kernel_row("flash_attention", "flash_attention.cu", "flash_attention.py:150",
+                   serve4["launches"]["flash_attention"], flash[0]),
+        kernel_row("ragged_paged_attention", "paged_attention.cu", f"{pa_py}:1250",
+                   serve5["launches"]["ragged_paged_attention"], walks[(False, False)]),
+        kernel_row("ragged_paged_attention_kvsplit", "paged_attention.cu", f"{pa_py}:1505",
+                   serve4["launches"]["ragged_paged_attention_kvsplit"],
+                   walks[(True, False)]),
+        kernel_row("ragged_paged_attention_int8", "paged_attention.cu", f"{pa_py}:1250",
+                   serve6s["launches"]["ragged_paged_attention_int8"], walks[(False, True)]),
+        kernel_row("ragged_paged_attention_kvsplit_int8", "paged_attention.cu",
+                   f"{pa_py}:1505",
+                   serve6["launches"]["ragged_paged_attention_kvsplit_int8"],
+                   walks[(True, True)]),
     ]
+    for name, source, line in [("paged_decode_attention", "paged_attention.cu", 474),
+                               ("paged_prefill_attention", "paged_window_attention.cu", 647),
+                               ("paged_verify_attention", "paged_window_attention.cu", 823)]:
+        for sfx in ("", "_int8"):
+            kernels.append(kernel_row(name + sfx, source, f"{pa_py}:{line}",
+                                      launches_b[name + sfx], prims[name + sfx]))
     os.makedirs(OUT_DIR, exist_ok=True)
-    strip = [{k: v for k, v in r.items() if k not in ("prompt", "token_ids")}
-             for r in res4 + res5]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "device": kind, "torch": torch.__version__,
                    "build_s": _build.build_seconds, "flash": flash,
-                   "single_walk": single, "kvsplit": split,
-                   "serve_4096": {"wall_s": wall4, "launches": launches4,
-                                  "requests": strip[:len(res4)], "greedy_gap": gap,
-                                  "decode_profile": prof},
-                   "serve_2048": {"wall_s": wall5, "launches": launches5,
-                                  "requests": strip[len(res4):], "greedy_gap": gap5},
+                   "walks": {f"{'split' if sp else 'single'}{'_int8' if q8 else ''}": r
+                             for (sp, q8), r in walks.items()},
+                   "primitives": prims, "primitive_launches": launches_b,
+                   "serve_4096": {**serve4, "decode_profile": prof4},
+                   "serve_2048": serve5,
+                   "serve_int8_4096": {**serve6, "decode_profile": prof6},
+                   "serve_int8_2048": serve6s,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[6/6] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[7/7] done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

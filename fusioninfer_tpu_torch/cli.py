@@ -1,7 +1,8 @@
 """Command line of the PyTorch/CUDA port.
 
     python -m fusioninfer_tpu_torch.cli engine serve qwen3-8b \\
-        [--device cuda] [--max-model-len 4096] [--port 8000] [--seed 0]
+        [--device cuda] [--max-model-len 4096] [--kv-cache-dtype int8] \\
+        [--port 8000] [--seed 0]
 
 ``engine serve`` runs on the card unless ``--device cpu`` is given; with
 no CUDA device it raises instead of falling back to the CPU.
@@ -28,6 +29,11 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--max-batch-size", type=int, default=8)
     serve.add_argument("--max-model-len", type=int, default=4096)
     serve.add_argument("--page-size", type=int, default=128)
+    serve.add_argument("--kv-cache-dtype", choices=("auto", "int8"),
+                       default="auto",
+                       help="int8: quantized KV pages with per-token f32 "
+                            "scales (Hd + 4 bytes per token and head "
+                            "instead of 2·Hd); auto keeps the model dtype")
     serve.add_argument("--seed", type=int, default=0,
                        help="seed of the random weights")
     serve.add_argument("--host", default="0.0.0.0")

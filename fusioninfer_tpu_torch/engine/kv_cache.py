@@ -2,6 +2,9 @@
 
 Device side: two stacked tensors ``[n_layers, n_kv_heads, n_pages,
 page_size, head_dim]`` (k and v), head-major like the JAX package's pool.
+With ``kv_dtype="int8"`` the pages hold int8 codes and two f32 scale
+pools ``[n_layers, n_kv_heads, n_pages, 1, page_size]`` (k_scale,
+v_scale) hold one scale per (token, head).
 The last page is the reserved "trash" page padded positions write to.
 Host side: a free-list allocator; allocation never touches the device.
 """
@@ -21,6 +24,10 @@ class CacheConfig:
     n_pages: int = 256  # includes the reserved trash page
     page_size: int = 128
     max_pages_per_seq: int = 32
+    # "model" = pages in the model dtype; "int8" = per-(token, kv-head)
+    # symmetric int8 pages plus f32 scales: Hd + 4 bytes per token and
+    # head instead of 2·Hd in bf16
+    kv_dtype: str = "model"
 
     @property
     def trash_page(self) -> int:
@@ -30,9 +37,15 @@ class CacheConfig:
     def max_len(self) -> int:
         return self.max_pages_per_seq * self.page_size
 
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype == "int8"
+
     def validate(self) -> "CacheConfig":
         if self.page_size < 1 or self.n_pages < 2 or self.max_pages_per_seq < 1:
             raise ValueError(f"invalid cache config {self}")
+        if self.kv_dtype not in ("model", "int8"):
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
         usable = self.n_pages - 1  # trash page reserved
         if self.max_pages_per_seq > usable:
             raise ValueError(
@@ -45,16 +58,28 @@ def init_kv_cache(cfg: ModelConfig, cache_cfg: CacheConfig,
                   device) -> dict:
     shape = (cfg.n_layers, cfg.n_kv_heads, cache_cfg.n_pages,
              cache_cfg.page_size, cfg.head_dim)
+    if cache_cfg.quantized:
+        scale_shape = (cfg.n_layers, cfg.n_kv_heads, cache_cfg.n_pages, 1,
+                       cache_cfg.page_size)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
     }
 
 
-def page_bytes(cfg: ModelConfig, page_size: int) -> int:
+def page_bytes(cfg: ModelConfig, page_size: int, kv_dtype: str = "model") -> int:
     """Device bytes one KV page costs (k + v, all layers)."""
-    itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
-    return 2 * cfg.n_layers * page_size * cfg.n_kv_heads * cfg.head_dim * itemsize
+    if kv_dtype == "int8":
+        per_token = cfg.head_dim + 4  # int8 codes + one f32 scale
+    else:
+        per_token = cfg.head_dim * torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return 2 * cfg.n_layers * page_size * cfg.n_kv_heads * per_token
 
 
 def model_param_bytes(cfg: ModelConfig) -> int:
@@ -75,7 +100,8 @@ HBM_UTILIZATION = 0.85
 
 
 def auto_cache_config(cfg: ModelConfig, page_size: int, max_model_len: int,
-                      max_batch_size: int, device) -> CacheConfig:
+                      max_batch_size: int, device,
+                      kv_dtype: str = "model") -> CacheConfig:
     """Size the page pool for ``max_batch_size`` sequences of
     ``max_model_len`` tokens.  On a CUDA device the request-shaped pool
     is first checked against ``torch.cuda.mem_get_info`` (total memory ×
@@ -88,7 +114,7 @@ def auto_cache_config(cfg: ModelConfig, page_size: int, max_model_len: int,
     if device.type == "cuda":
         _, total = torch.cuda.mem_get_info(device)
         budget = int(total * HBM_UTILIZATION) - model_param_bytes(cfg)
-        fit = budget // max(1, page_bytes(cfg, page_size))
+        fit = budget // max(1, page_bytes(cfg, page_size, kv_dtype))
         if fit < min_pages:
             raise ValueError(
                 f"model {cfg.name} with max_model_len={max_model_len} × "
@@ -96,7 +122,8 @@ def auto_cache_config(cfg: ModelConfig, page_size: int, max_model_len: int,
                 f"but only {max(0, int(fit))} fit in {HBM_UTILIZATION:.0%} of "
                 f"{total / 2**30:.1f} GiB after weights")
     return CacheConfig(n_pages=min_pages, page_size=page_size,
-                       max_pages_per_seq=pages_per_seq).validate()
+                       max_pages_per_seq=pages_per_seq,
+                       kv_dtype=kv_dtype).validate()
 
 
 class PageAllocator:

@@ -19,6 +19,7 @@ import torch
 
 from fusioninfer_tpu_torch.engine.kv_cache import CacheConfig
 from fusioninfer_tpu_torch.models.config import ModelConfig
+from fusioninfer_tpu_torch.models.quantization import kv_quantize
 from fusioninfer_tpu_torch.models.transformer import (
     embed_lookup,
     layer_forward,
@@ -41,7 +42,15 @@ def _scatter_kv(cache: dict, l: int, k: torch.Tensor, v: torch.Tensor,
     """Write fresh K/V (``[..., KV, Hd]``, head axis at ``head_axis``) into
     layer ``l`` of the head-major pools ``[L, KV, n_pages, ps, Hd]`` in
     place, at ``(write_page, write_slot)`` (int64 index tensors of the
-    leading shape)."""
+    leading shape).  An int8 pool quantizes on the way; the per-token
+    scales land in the squeezed ``[KV, n_pages, ps]`` view of layer
+    ``l``'s ``[KV, n_pages, 1, ps]`` scale pool."""
+    if "k_scale" in cache:
+        (k, k_s), (v, v_s) = kv_quantize(k), kv_quantize(v)
+        cache["k_scale"][l, :, :, 0][:, write_page, write_slot] = torch.movedim(
+            k_s, head_axis, 0)
+        cache["v_scale"][l, :, :, 0][:, write_page, write_slot] = torch.movedim(
+            v_s, head_axis, 0)
     cache["k"][l][:, write_page, write_slot] = torch.movedim(k, head_axis, 0).to(
         cache["k"].dtype)
     cache["v"][l][:, write_page, write_slot] = torch.movedim(v, head_axis, 0).to(
@@ -52,14 +61,12 @@ def _ragged_attn(q, cache, page_tables, row_starts, q_begins, q_lens, *,
                  layer: int, window, kv_splits: int) -> torch.Tensor:
     """The one ragged dispatch every paged forward routes through: the
     split walk when the engine's static heuristic engaged it
-    (``kv_splits > 0``), else the single walk."""
-    if kv_splits > 0:
-        return ragged_paged_attention_kvsplit(
-            q, cache["k"], cache["v"], page_tables, row_starts, q_begins,
-            q_lens, window=window, layer=layer)
-    return ragged_paged_attention(
-        q, cache["k"], cache["v"], page_tables, row_starts, q_begins, q_lens,
-        window=window, layer=layer)
+    (``kv_splits > 0``), else the single walk; an int8 pool passes its
+    scale pools along."""
+    walk = ragged_paged_attention_kvsplit if kv_splits > 0 else ragged_paged_attention
+    return walk(q, cache["k"], cache["v"], page_tables, row_starts, q_begins,
+                q_lens, cache.get("k_scale"), cache.get("v_scale"),
+                window=window, layer=layer)
 
 
 @torch.no_grad()

@@ -388,15 +388,17 @@ class EngineServer:
 
 def engine_from_args(args) -> NativeEngine:
     """Build the serve engine from ``engine serve`` flags; decode's
-    split-KV walk engages from the static cache config."""
+    split-KV walk engages from the static cache config, and
+    ``--kv-cache-dtype int8`` makes the pages int8."""
     from fusioninfer_tpu_torch.engine.engine import resolve_device
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
 
     device = resolve_device(args.device)
     cfg = get_preset(args.model)
+    kv_dtype = "int8" if args.kv_cache_dtype == "int8" else "model"
     cache_cfg = auto_cache_config(cfg, args.page_size, args.max_model_len,
-                                  args.max_batch_size, device)
+                                  args.max_batch_size, device, kv_dtype)
     return NativeEngine(cfg, cache_cfg, max_batch_size=args.max_batch_size,
                         seed=args.seed, device=device)
 

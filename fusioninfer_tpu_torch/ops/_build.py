@@ -42,12 +42,21 @@ SIGNATURES = {
                                  _I, _I, _P],
     },
     "paged_attention.cu": {
-        # q, k_pages, v_pages, tables, row_starts, q_begins, q_lens, out,
-        # T, R, KV, G, Hd, n_pages, ps, mp, layer, scale, window, stream
-        "ragged_paged_attention_bf16": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+        # q, k_pages, v_pages, k_scales, v_scales (NULL for bf16 pages),
+        # tables, row_starts, q_begins, q_lens, out, T, R, KV, G, Hd,
+        # n_pages, ps, mp, layer, scale, window, stream
+        "ragged_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
         # ... plus acc/m/l partials before out, and chunks, chunk_pages
-        "ragged_paged_attention_kvsplit_bf16": [_P] * 11 + [_I] * 9
-                                               + [_F, _I, _I, _I, _P],
+        "ragged_paged_attention_kvsplit": [_P] * 13 + [_I] * 9
+                                          + [_F, _I, _I, _I, _P],
+        # q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out,
+        # B, KV, G, Hd, n_pages, ps, mp, layer, scale, window, stream
+        "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    },
+    "paged_window_attention.cu": {
+        # q, k_pages, v_pages, k_scales, v_scales, tables, starts, counts,
+        # out, B, C, KV, G, Hd, n_pages, ps, mp, layer, scale, window, stream
+        "paged_window_attention": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
     },
 }
 

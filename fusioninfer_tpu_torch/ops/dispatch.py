@@ -10,8 +10,14 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("flash_attention", "ragged_paged_attention",
-           "ragged_paged_attention_kvsplit")
+# one counter per kernel and page type: the paged wrappers count int8
+# pages under ``<name>_int8``
+KERNELS = ("flash_attention",
+           "ragged_paged_attention", "ragged_paged_attention_int8",
+           "ragged_paged_attention_kvsplit", "ragged_paged_attention_kvsplit_int8",
+           "paged_decode_attention", "paged_decode_attention_int8",
+           "paged_prefill_attention", "paged_prefill_attention_int8",
+           "paged_verify_attention", "paged_verify_attention_int8")
 
 # kernel name -> launches since the last reset; a wrapper adds one where
 # it launches its kernel and nowhere else

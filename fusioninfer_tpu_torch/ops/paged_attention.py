@@ -1,14 +1,20 @@
-"""Ragged paged attention over the head-major KV pool: CUDA kernel
-wrappers + plain versions.
+"""Paged attention over the head-major KV pool: CUDA kernel wrappers +
+plain versions.
 
-Replaces two Pallas TPU kernels of ``fusioninfer_tpu/ops/paged_attention.py``:
+Replaces the five Pallas TPU kernels of
+``fusioninfer_tpu/ops/paged_attention.py`` that read cache pages:
 
 * ``ragged_paged_attention`` (the single page walk) and
 * ``ragged_paged_attention_kvsplit`` (the page walk split over
   ``KV_SPLIT_CHUNKS`` fixed virtual chunks, with f32 ``(acc, m, l)``
-  partials folded left to right by a log-sum-exp combine).
+  partials folded left to right by a log-sum-exp combine), the serve
+  path's decode attention;
+* ``paged_decode_attention`` (one query token per sequence),
+  ``paged_prefill_attention`` (one sequence's suffix of queries) and
+  ``paged_verify_attention`` (per-sequence query windows), standalone
+  primitives no engine path calls.
 
-Contract (shared by both): q ``[T, H, Hd]`` is a flat ragged axis of
+Ragged contract (both walks): q ``[T, H, Hd]`` is a flat ragged axis of
 tokens.  Token ``t`` belongs to the row ``r`` whose segment
 ``[q_begins[r], q_begins[r] + q_lens[r])`` holds it, sits at global
 position ``row_starts[r] + t - q_begins[r]`` and attends causally (and
@@ -16,23 +22,33 @@ within ``window``) over row ``r``'s pages ``page_tables[r]`` of the pool
 ``[(L,) KV, n_pages, ps, Hd]``.  Tokens covered by no row come out as
 zeros.  Output ``[T, H·Hd]``.
 
-Kernel (``csrc/paged_attention.cu``): one block of four warps per
-(token, KV head[, virtual chunk]); the block carries the token's
-``G = H // KV`` query heads, resolves its row from the descriptors
-itself, and walks only the live keys of that row's pages (32 keys per
-warp step, one key per lane) with an online softmax in f32.  The four
-warps' states merge in shared memory; the split variant writes them as
-f32 partials and a second small kernel runs the fixed-order combine.
-Blocks per token (not per 8-token tile, as on the TPU) because a decode
-step's tokens each belong to a different row with different pages, and
-the GPU needs many blocks in flight to reach its memory rate.
+Pages are bf16, or int8 with f32 scales ``[(L,) KV, n_pages, 1, ps]``
+(one per token and head, :func:`models.quantization.kv_quantize`).  The
+K scale multiplies the scores after the dot and the V scale the
+probabilities before P·V, in the kernels and in the plain versions, so
+no page is ever dequantized into memory.
+
+Kernels (``csrc/paged_attention.cu``): the walks and paged decode run
+one block of eight warps per (token or sequence, KV head[, virtual
+chunk]); the block carries the ``G = H // KV`` query heads, and walks
+only the live keys of its row's pages (32 keys per warp step, one key
+per lane) with an online softmax in f32.  The warps' states merge in
+shared memory; the split variant writes them as f32 partials and a
+second small kernel runs the fixed-order combine.  Blocks per token
+(not per 8-token tile, as on the TPU) because a decode step's tokens
+each belong to a different row with different pages, and the GPU needs
+many blocks in flight to reach its memory rate.  Suffix prefill and
+verify share ``csrc/paged_window_attention.cu``: tensor-core tiles of
+(query, group head) rows against 64-key tiles read through the page
+table, under the causal wavefront.
 
 Bound on an H100: decode attention reads every live K/V byte once and
 does ~4·G·Hd FLOP per key and head, far below the 295 FLOP/byte ridge,
-so it is bound by bytes (3.35 TB/s).  The design reads each live page
-row once per (token, KV head) with 16-byte loads and keeps the scores
-out of device memory; the split variant multiplies the blocks in
-flight by ``KV_SPLIT_CHUNKS`` for long contexts.
+so it is bound by bytes (3.35 TB/s); int8 pages move Hd + 4 bytes per
+token and head instead of 2·Hd.  The walks read each live page row once
+per (token, KV head) and keep the scores out of device memory; the split
+variant multiplies the blocks in flight by ``KV_SPLIT_CHUNKS`` for long
+contexts.
 """
 
 from __future__ import annotations
@@ -84,55 +100,81 @@ def ragged_token_rows(q_begins: torch.Tensor, q_lens: torch.Tensor,
     return row_of, off, live
 
 
+def _context(pages, scales, tables):
+    """Each table row's pages gathered into a flat f32 context
+    ``[KV, N, mp·ps, Hd]``, with its per-key scales ``[KV, N, mp·ps]``
+    (None for unquantized pages)."""
+    KV, _, ps, Hd = pages.shape
+    N, mp = tables.shape
+    t = tables.long()
+    ctx = pages[:, t].reshape(KV, N, mp * ps, Hd).float()
+    if scales is None:
+        return ctx, None
+    return ctx, scales[:, t, 0].reshape(KV, N, mp * ps)
+
+
 def _gathered(q, k_pages, v_pages, page_tables, row_starts, q_begins,
-              q_lens, window):
+              q_lens, k_scales, v_scales, window):
     """f32 scores ``[KV, T, G, mp·ps]`` over each token's gathered row
-    context, the visibility mask, the context values and token liveness."""
+    context (the K scale folded in after the dot), the visibility mask,
+    the context values, their V scales ``[KV, T, 1, mp·ps]`` (or None)
+    and token liveness."""
     T, H, Hd = q.shape
-    KV, _, ps, _ = k_pages.shape
+    KV = k_pages.shape[0]
     G = H // KV
     mp = page_tables.shape[1]
+    ps = k_pages.shape[2]
     row_of, off, live = ragged_token_rows(q_begins, q_lens, T)
     pos = row_starts[row_of] + off
-    tables = page_tables[row_of].long()  # [T, mp]
-    k_ctx = k_pages[:, tables].reshape(KV, T, mp * ps, Hd).float()
-    v_ctx = v_pages[:, tables].reshape(KV, T, mp * ps, Hd).float()
+    tables = page_tables[row_of]  # [T, mp]
+    k_ctx, ks = _context(k_pages, k_scales, tables)
+    v_ctx, vs = _context(v_pages, v_scales, tables)
     qg = q.reshape(T, KV, G, Hd).float()
     s = torch.einsum("tkgd,ktsd->ktgs", qg, k_ctx) / (Hd ** 0.5)
+    if ks is not None:
+        s = s * ks[:, :, None, :]
     ctx = torch.arange(mp * ps, device=q.device)
     mask = attend(pos[:, None], ctx[None, :], window) & live[:, None]
-    return s, mask[None, :, None, :], v_ctx, live
+    return (s, mask[None, :, None, :], v_ctx,
+            None if vs is None else vs[:, :, None, :], live)
 
 
 def reference_ragged_paged_attention(q, k_pages, v_pages, page_tables,
                                      row_starts, q_begins, q_lens,
+                                     k_scales=None, v_scales=None,
                                      window=None) -> torch.Tensor:
     """Plain gathered-context version of the single walk (pages
-    ``[KV, n_pages, ps, Hd]``).  Tokens covered by no row are zeros."""
+    ``[KV, n_pages, ps, Hd]``; int8 pages with scales ``[KV, n_pages, 1,
+    ps]``).  Tokens covered by no row are zeros."""
     T, H, Hd = q.shape
-    s, mask, v_ctx, live = _gathered(q, k_pages, v_pages, page_tables,
-                                     row_starts, q_begins, q_lens, window)
+    s, mask, v_ctx, vs, live = _gathered(q, k_pages, v_pages, page_tables,
+                                         row_starts, q_begins, q_lens,
+                                         k_scales, v_scales, window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     probs = torch.softmax(s, dim=-1) * live[None, :, None, None]
+    if vs is not None:
+        probs = probs * vs
     out = torch.einsum("ktgs,ktsd->tkgd", probs, v_ctx)
     return out.reshape(T, H * Hd).to(q.dtype)
 
 
 def reference_kvsplit_partials(q, k_pages, v_pages, page_tables, row_starts,
-                               q_begins, q_lens, window=None):
+                               q_begins, q_lens, k_scales=None, v_scales=None,
+                               window=None):
     """Plain version of the split walk's f32 partials: for each of the
     ``KV_SPLIT_CHUNKS`` virtual chunks (``ceil(mp / chunks)`` pages each),
     the chunk's raw ``(acc [C, T, KV, G, Hd], m [C, T, KV, G],
     l [C, T, KV, G])`` over its visible keys; an empty chunk is
-    ``(0, -inf, 0)``."""
+    ``(0, -inf, 0)``.  The V scale weights ``acc``, not ``l``."""
     T, H, Hd = q.shape
     KV, _, ps, _ = k_pages.shape
     G = H // KV
     mp = page_tables.shape[1]
     C = KV_SPLIT_CHUNKS
     chunk_keys = -(-mp // C) * ps
-    s, mask, v_ctx, _ = _gathered(q, k_pages, v_pages, page_tables,
-                                  row_starts, q_begins, q_lens, window)
+    s, mask, v_ctx, vs, _ = _gathered(q, k_pages, v_pages, page_tables,
+                                      row_starts, q_begins, q_lens,
+                                      k_scales, v_scales, window)
     pad = C * chunk_keys - mp * ps
     s = torch.nn.functional.pad(s, (0, pad))
     mask = torch.nn.functional.pad(mask, (0, pad))
@@ -143,6 +185,8 @@ def reference_kvsplit_partials(q, k_pages, v_pages, page_tables, row_starts,
     m = s.amax(dim=-1)  # [KV, T, G, C]
     p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
     l = p.sum(dim=-1)
+    if vs is not None:
+        p = p * torch.nn.functional.pad(vs, (0, pad)).reshape(KV, T, 1, C, chunk_keys)
     acc = torch.einsum("ktgcs,ktcsd->ktgcd", p,
                        v_ctx.reshape(KV, T, C, chunk_keys, Hd))
     return (acc.permute(3, 1, 0, 2, 4).contiguous(),
@@ -169,33 +213,108 @@ def combine_kvsplit_partials(acc, m, l, dtype) -> torch.Tensor:
 
 def reference_ragged_paged_attention_kvsplit(q, k_pages, v_pages,
                                              page_tables, row_starts,
-                                             q_begins, q_lens,
+                                             q_begins, q_lens, k_scales=None,
+                                             v_scales=None,
                                              window=None) -> torch.Tensor:
     """Plain version of the split walk: the same partials, the same
     combine (pages ``[KV, n_pages, ps, Hd]``)."""
     acc, m, l = reference_kvsplit_partials(q, k_pages, v_pages, page_tables,
                                            row_starts, q_begins, q_lens,
-                                           window)
+                                           k_scales, v_scales, window)
     return combine_kvsplit_partials(acc, m, l, q.dtype)
 
 
-def _layer_pages(k_pages, v_pages, layer):
-    """(k, v, layer) with stacked ``[L, KV, ...]`` pools: a 4-D pool takes
-    no layer, a stacked one requires it."""
+def reference_paged_verify_attention(q, k_pages, v_pages, page_tables,
+                                     starts, counts, k_scales=None,
+                                     v_scales=None, window=None) -> torch.Tensor:
+    """Plain gathered-context version of the verify window → ``[B, C,
+    H·Hd]``: query ``i`` of sequence ``b`` sits at ``starts[b] + i`` and
+    attends causally over ``page_tables[b]``'s pages.  Rows at or past
+    ``counts[b]`` (all of an inactive slot's) are zeros."""
+    B, C, H, Hd = q.shape
+    KV, _, ps, _ = k_pages.shape
+    G = H // KV
+    mp = page_tables.shape[1]
+    k_ctx, ks = _context(k_pages, k_scales, page_tables)
+    v_ctx, vs = _context(v_pages, v_scales, page_tables)
+    qg = q.reshape(B, C, KV, G, Hd).float()
+    s = torch.einsum("bckgd,kbtd->bkgct", qg, k_ctx) / (Hd ** 0.5)
+    if ks is not None:
+        s = s * ks.transpose(0, 1)[:, :, None, None, :]
+    i = torch.arange(C, device=q.device)
+    live = i[None, :] < counts[:, None]  # [B, C]
+    pos = starts[:, None] + i[None, :]
+    ctx = torch.arange(mp * ps, device=q.device)
+    mask = attend(pos[:, :, None], ctx, window) & live[:, :, None]  # [B, C, S]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1) * live[:, None, None, :, None]
+    if vs is not None:
+        probs = probs * vs.transpose(0, 1)[:, :, None, None, :]
+    out = torch.einsum("bkgct,kbtd->bckgd", probs, v_ctx)
+    return out.reshape(B, C, H * Hd).to(q.dtype)
+
+
+def reference_paged_prefill_attention(q, k_pages, v_pages, page_row, start,
+                                      true_len, k_scales=None, v_scales=None,
+                                      window=None) -> torch.Tensor:
+    """Plain version of the suffix prefill → ``[C, H·Hd]``: the verify
+    window of one sequence.  Rows at or past ``true_len`` are zeros."""
+    dev = q.device
+    return reference_paged_verify_attention(
+        q[None], k_pages, v_pages, page_row[None],
+        torch.as_tensor(start, device=dev).reshape(1),
+        torch.as_tensor(true_len, device=dev).reshape(1),
+        k_scales, v_scales, window)[0]
+
+
+def reference_paged_attention(q, k_pages, v_pages, page_tables, lengths,
+                              k_scales=None, v_scales=None,
+                              window=None) -> torch.Tensor:
+    """Plain version of paged decode → ``[B, H·Hd]``: one query per
+    sequence at position ``lengths[b] - 1``; ``lengths[b] = 0`` (an
+    inactive slot) gives zeros."""
+    return reference_paged_verify_attention(
+        q[:, None], k_pages, v_pages, page_tables, lengths - 1,
+        (lengths > 0).to(lengths.dtype), k_scales, v_scales, window)[:, 0]
+
+
+def _layer_pages(k_pages, v_pages, k_scales, v_scales, layer):
+    """(k, v, k_scales, v_scales, layer) with stacked ``[L, KV, ...]``
+    pools: a 4-D pool takes no layer, a stacked one requires it.  Checks
+    the pairing of page dtype and scales on either route: int8 pages come
+    with both scale pools, other pages with none."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales go together")
+    quantized = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
+    if quantized != (k_scales is not None):
+        raise ValueError("int8 KV pages need their f32 scales, and only int8 "
+                         f"pages take scales (pages {k_pages.dtype}, scales "
+                         f"{'given' if k_scales is not None else 'absent'})")
     if k_pages.dim() == 5:
         if layer is None:
             raise ValueError("stacked [L, KV, n_pages, ps, Hd] pools require layer")
-        return k_pages, v_pages, int(layer)
+        return k_pages, v_pages, k_scales, v_scales, int(layer)
     if layer is not None:
         raise ValueError("layer only applies to stacked [L, ...] pools")
-    return k_pages[None], v_pages[None], 0
+    if quantized:
+        k_scales, v_scales = k_scales[None], v_scales[None]
+    return k_pages[None], v_pages[None], k_scales, v_scales, 0
 
 
-def _check_operands(q, k_pages, v_pages, descriptors, k_scales, v_scales,
-                    layer):
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("int8 KV pages are not ported yet")
-    T, H, Hd = q.shape
+def _plain_pages(k_pages, v_pages, k_scales, v_scales, layer):
+    """Layer ``layer``'s 4-D pages and scales for the plain versions."""
+    kp, vp, ks, vs, li = _layer_pages(k_pages, v_pages, k_scales, v_scales, layer)
+    if ks is None:
+        return kp[li], vp[li], None, None
+    return kp[li], vp[li], ks[li], vs[li]
+
+
+def _check_pages(q, k_pages, v_pages, k_scales, v_scales, layer):
+    """What every kernel takes: bf16 q ``[..., H, Hd]``; stacked pools
+    ``[L, KV, n_pages, ps, Hd]``, bf16 without scales or int8 with f32
+    scales ``[L, KV, n_pages, 1, ps]``; everything contiguous and 16-byte
+    aligned.  Returns ``(H, Hd, KV, n_pages, ps)``."""
+    H, Hd = q.shape[-2:]
     L, KV, n_pages, ps, Hd_k = k_pages.shape
     if v_pages.shape != k_pages.shape or Hd_k != Hd:
         raise ValueError(f"page pools {tuple(k_pages.shape)}/"
@@ -206,25 +325,53 @@ def _check_operands(q, k_pages, v_pages, descriptors, k_scales, v_scales,
         raise ValueError(f"head_dim {Hd} not in {_HEAD_DIMS}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside [0, {L})")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+    page_dtype = torch.int8 if k_scales is not None else torch.bfloat16
+    checks = [("q", q, torch.bfloat16), ("k_pages", k_pages, page_dtype),
+              ("v_pages", v_pages, page_dtype)]
+    if k_scales is not None:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if tuple(t.shape) != (L, KV, n_pages, 1, ps):
+                raise ValueError(f"{name} {tuple(t.shape)} is not "
+                                 f"{(L, KV, n_pages, 1, ps)}")
+            checks.append((name, t, torch.float32))
+    for name, t, dtype in checks:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    tables, row_starts, q_begins, q_lens = descriptors
-    R = tables.shape[0]
-    for name, t in (("page_tables", tables), ("row_starts", row_starts),
-                    ("q_begins", q_begins), ("q_lens", q_lens)):
+    return H, Hd, KV, n_pages, ps
+
+
+def _check_int32(R: int, **tensors) -> None:
+    for name, t in tensors.items():
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{name} must be contiguous int32")
         if t.shape[0] != R:
-            raise ValueError(f"{name} has {t.shape[0]} rows, page_tables {R}")
-    return T, H, Hd, KV, n_pages, ps, R, tables.shape[1]
+            raise ValueError(f"{name} has {t.shape[0]} rows, expected {R}")
 
 
-def _launch_args(q, k_pages, v_pages, descriptors):
-    return [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            *(t.data_ptr() for t in descriptors)]
+def _pointers(*tensors) -> list:
+    """Device pointers for the C entries; an absent operand is NULL."""
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ragged_operands(q, k_pages, v_pages, descriptors, k_scales, v_scales,
+                     layer):
+    H, Hd, KV, n_pages, ps = _check_pages(q, k_pages, v_pages, k_scales,
+                                          v_scales, layer)
+    tables, row_starts, q_begins, q_lens = descriptors
+    _check_int32(tables.shape[0], page_tables=tables, row_starts=row_starts,
+                 q_begins=q_begins, q_lens=q_lens)
+    return q.shape[0], H, Hd, KV, n_pages, ps, tables.shape[0], tables.shape[1]
+
+
+def _variant(name: str, k_scales) -> str:
+    """Launch-counter name: int8 pages count under ``<name>_int8``."""
+    return name if k_scales is None else name + "_int8"
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_starts,
@@ -235,26 +382,23 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_starts,
     tensors, :func:`reference_ragged_paged_attention` for CPU tensors."""
     descriptors = (page_tables, row_starts, q_begins, q_lens)
     if not dispatch.use_kernel(q, k_pages, v_pages, *descriptors):
-        if k_scales is not None or v_scales is not None:
-            raise NotImplementedError("int8 KV pages are not ported yet")
-        kp, vp, li = _layer_pages(k_pages, v_pages, layer)
-        return reference_ragged_paged_attention(
-            q, kp[li], vp[li], *descriptors, window=window)
-    kp, vp, li = _layer_pages(k_pages, v_pages, layer)
-    T, H, Hd, KV, n_pages, ps, R, mp = _check_operands(
-        q, kp, vp, descriptors, k_scales, v_scales, li)
+        kp, vp, ks, vs = _plain_pages(k_pages, v_pages, k_scales, v_scales, layer)
+        return reference_ragged_paged_attention(q, kp, vp, *descriptors, ks, vs,
+                                                window=window)
+    kp, vp, ks, vs, li = _layer_pages(k_pages, v_pages, k_scales, v_scales, layer)
+    T, H, Hd, KV, n_pages, ps, R, mp = _ragged_operands(
+        q, kp, vp, descriptors, ks, vs, li)
     from fusioninfer_tpu_torch.ops import _build
 
-    fn = _build.entry("paged_attention.cu", "ragged_paged_attention_bf16")
+    fn = _build.entry("paged_attention.cu", "ragged_paged_attention")
     out = torch.empty((T, H * Hd), dtype=q.dtype, device=q.device)
     if T == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*_launch_args(q, kp, vp, descriptors), out.data_ptr(),
+    err = fn(*_pointers(q, kp, vp, ks, vs, *descriptors, out),
              T, R, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
-             window or 0, stream)
-    _build.check(err, "ragged_paged_attention_bf16")
-    dispatch.count_launch("ragged_paged_attention")
+             window or 0, _stream(q))
+    _build.check(err, "ragged_paged_attention")
+    dispatch.count_launch(_variant("ragged_paged_attention", ks))
     return out
 
 
@@ -269,18 +413,15 @@ def ragged_paged_attention_kvsplit(q, k_pages, v_pages, page_tables,
     own block."""
     descriptors = (page_tables, row_starts, q_begins, q_lens)
     if not dispatch.use_kernel(q, k_pages, v_pages, *descriptors):
-        if k_scales is not None or v_scales is not None:
-            raise NotImplementedError("int8 KV pages are not ported yet")
-        kp, vp, li = _layer_pages(k_pages, v_pages, layer)
+        kp, vp, ks, vs = _plain_pages(k_pages, v_pages, k_scales, v_scales, layer)
         return reference_ragged_paged_attention_kvsplit(
-            q, kp[li], vp[li], *descriptors, window=window)
-    kp, vp, li = _layer_pages(k_pages, v_pages, layer)
-    T, H, Hd, KV, n_pages, ps, R, mp = _check_operands(
-        q, kp, vp, descriptors, k_scales, v_scales, li)
+            q, kp, vp, *descriptors, ks, vs, window=window)
+    kp, vp, ks, vs, li = _layer_pages(k_pages, v_pages, k_scales, v_scales, layer)
+    T, H, Hd, KV, n_pages, ps, R, mp = _ragged_operands(
+        q, kp, vp, descriptors, ks, vs, li)
     from fusioninfer_tpu_torch.ops import _build
 
-    fn = _build.entry("paged_attention.cu",
-                      "ragged_paged_attention_kvsplit_bf16")
+    fn = _build.entry("paged_attention.cu", "ragged_paged_attention_kvsplit")
     C = KV_SPLIT_CHUNKS
     G = H // KV
     out = torch.empty((T, H * Hd), dtype=q.dtype, device=q.device)
@@ -289,11 +430,104 @@ def ragged_paged_attention_kvsplit(q, k_pages, v_pages, page_tables,
     acc = torch.empty((C, T, KV, G, Hd), dtype=torch.float32, device=q.device)
     m = torch.empty((C, T, KV, G), dtype=torch.float32, device=q.device)
     l = torch.empty((C, T, KV, G), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*_launch_args(q, kp, vp, descriptors), acc.data_ptr(),
-             m.data_ptr(), l.data_ptr(), out.data_ptr(),
+    err = fn(*_pointers(q, kp, vp, ks, vs, *descriptors, acc, m, l, out),
              T, R, KV, G, Hd, n_pages, ps, mp, li, Hd ** -0.5,
-             window or 0, C, -(-mp // C), stream)
-    _build.check(err, "ragged_paged_attention_kvsplit_bf16")
-    dispatch.count_launch("ragged_paged_attention_kvsplit")
+             window or 0, C, -(-mp // C), _stream(q))
+    _build.check(err, "ragged_paged_attention_kvsplit")
+    dispatch.count_launch(_variant("ragged_paged_attention_kvsplit", ks))
     return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
+                           k_scales=None, v_scales=None, *,
+                           window: int | None = None,
+                           layer: int | None = None) -> torch.Tensor:
+    """One query token per sequence over its pages → ``[B, H·Hd]``
+    (q ``[B, H, Hd]``, tables ``[B, mp]``, ``lengths [B]`` the context
+    length including the query token; 0 marks an inactive slot, whose
+    output is zeros).  The CUDA kernel for CUDA tensors,
+    :func:`reference_paged_attention` for CPU tensors."""
+    if not dispatch.use_kernel(q, k_pages, v_pages, page_tables, lengths):
+        kp, vp, ks, vs = _plain_pages(k_pages, v_pages, k_scales, v_scales, layer)
+        return reference_paged_attention(q, kp, vp, page_tables, lengths, ks, vs,
+                                         window=window)
+    kp, vp, ks, vs, li = _layer_pages(k_pages, v_pages, k_scales, v_scales, layer)
+    H, Hd, KV, n_pages, ps = _check_pages(q, kp, vp, ks, vs, li)
+    B, mp = page_tables.shape
+    _check_int32(B, page_tables=page_tables, lengths=lengths)
+    from fusioninfer_tpu_torch.ops import _build
+
+    fn = _build.entry("paged_attention.cu", "paged_decode_attention")
+    out = torch.empty((B, H * Hd), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    err = fn(*_pointers(q, kp, vp, ks, vs, page_tables, lengths, out),
+             B, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5, window or 0,
+             _stream(q))
+    _build.check(err, "paged_decode_attention")
+    dispatch.count_launch(_variant("paged_decode_attention", ks))
+    return out
+
+
+def _window_kernel(name, q, kp, vp, ks, vs, li, page_tables, starts, counts,
+                   window):
+    """Launch the query-window kernel on q ``[B, C, H, Hd]`` → ``[B, C,
+    H·Hd]`` (shared by suffix prefill, B = 1, and verify)."""
+    H, Hd, KV, n_pages, ps = _check_pages(q, kp, vp, ks, vs, li)
+    B, C = q.shape[:2]
+    mp = page_tables.shape[1]
+    _check_int32(B, page_tables=page_tables, starts=starts, counts=counts)
+    from fusioninfer_tpu_torch.ops import _build
+
+    fn = _build.entry("paged_window_attention.cu", "paged_window_attention")
+    out = torch.empty((B, C, H * Hd), dtype=q.dtype, device=q.device)
+    if B == 0 or C == 0:
+        return out
+    err = fn(*_pointers(q, kp, vp, ks, vs, page_tables, starts, counts, out),
+             B, C, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
+             window or 0, _stream(q))
+    _build.check(err, name)
+    dispatch.count_launch(_variant(name, ks))
+    return out
+
+
+def paged_prefill_attention(q, k_pages, v_pages, page_row, start, true_len,
+                            k_scales=None, v_scales=None, *,
+                            window: int | None = None,
+                            layer: int | None = None) -> torch.Tensor:
+    """Suffix-prefill attention of one sequence → ``[C, H·Hd]``: query
+    ``i`` of q ``[C, H, Hd]`` sits at ``start + i`` and attends causally
+    over the pages of ``page_row [mp]``; rows at or past ``true_len`` are
+    padding and come out as zeros.  ``start`` and ``true_len`` are ints
+    or one-element tensors.  The query-window CUDA kernel (a batch of
+    one) for CUDA tensors, :func:`reference_paged_prefill_attention` for
+    CPU tensors."""
+    dev = q.device
+    starts = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(1)
+    counts = torch.as_tensor(true_len, dtype=torch.int32, device=dev).reshape(1)
+    if not dispatch.use_kernel(q, k_pages, v_pages, page_row):
+        kp, vp, ks, vs = _plain_pages(k_pages, v_pages, k_scales, v_scales, layer)
+        return reference_paged_prefill_attention(q, kp, vp, page_row, starts,
+                                                 counts, ks, vs, window=window)
+    kp, vp, ks, vs, li = _layer_pages(k_pages, v_pages, k_scales, v_scales, layer)
+    return _window_kernel("paged_prefill_attention", q[None], kp, vp, ks, vs,
+                          li, page_row[None], starts, counts, window)[0]
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_tables, starts, counts,
+                           k_scales=None, v_scales=None, *,
+                           window: int | None = None,
+                           layer: int | None = None) -> torch.Tensor:
+    """Per-sequence query windows over paged KV → ``[B, C, H·Hd]``:
+    query ``i`` of q ``[B, C, H, Hd]`` sits at ``starts[b] + i`` and
+    attends causally over ``page_tables[b]``'s pages; rows at or past
+    ``counts[b]`` are padding and come out as zeros (``counts[b] = 0``
+    is an inactive slot).  The query-window CUDA kernel for CUDA
+    tensors, :func:`reference_paged_verify_attention` for CPU tensors."""
+    if not dispatch.use_kernel(q, k_pages, v_pages, page_tables, starts, counts):
+        kp, vp, ks, vs = _plain_pages(k_pages, v_pages, k_scales, v_scales, layer)
+        return reference_paged_verify_attention(q, kp, vp, page_tables, starts,
+                                                counts, ks, vs, window=window)
+    kp, vp, ks, vs, li = _layer_pages(k_pages, v_pages, k_scales, v_scales, layer)
+    return _window_kernel("paged_verify_attention", q, kp, vp, ks, vs, li,
+                          page_tables, starts, counts, window)
