@@ -15,7 +15,13 @@ Phases, in order; any failure exits non-zero before the result line:
    function) times by CUDA events, and the least time the card could
    take (bytes or operations).  The three standalone primitives (paged
    decode, suffix prefill, verify) are first driven once each through
-   their ``ops`` entry points with the launch counts reset;
+   their ``ops`` entry points with the launch counts reset.  Untimed
+   cases cover what the served shapes do not reach, among them the
+   query-window kernel's key split (verify windows over one, two and
+   three 1024-key chunks in one batch, and a windowed suffix prefill on
+   two consumer warpgroups across a chunk boundary, held also against
+   the plain chunk partials folded by the split combine) and flash at S
+   off its 128-row q tile;
 4. serve ``qwen3-8b`` at full width (36 layers, random bf16 weights from
    a seed) through the port's HTTP server at ``--max-model-len 4096``:
    four requests, two of them SSE; every request must return its full
@@ -465,8 +471,11 @@ def check_variants(gen) -> int:
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     n = 0
+    # S off the 128-row q tile: below one tile, across a few, and (S 1000)
+    # eight tiles with a ragged last one that the TMA boxes zero-fill
     for B, S, H, KV, Hd, window in [(1, 512, 32, 8, 128, 100), (2, 100, 4, 2, 64, None),
-                                    (1, 200, 8, 8, 128, None), (1, 130, 16, 2, 64, 40)]:
+                                    (1, 200, 8, 8, 128, None), (1, 130, 16, 2, 64, 40),
+                                    (2, 1000, 32, 8, 128, None)]:
         q, k, v = rnd(B, S, H, Hd), rnd(B, S, KV, Hd), rnd(B, S, KV, Hd)
         check_close(fa.flash_attention(q, k, v, window=window),
                     fa.reference_attention(q, k, v, window=window),
@@ -528,6 +537,69 @@ def check_variants(gen) -> int:
                                                              150, 77, *lsc, window=window),
                         f"suffix prefill {tag}", WINDOW_ROW_TOL, Hd)
             n += 5
+    return n
+
+
+def check_window_split(gen) -> int:
+    """Untimed checks of the query-window kernel's key split, on page size
+    128 (TMA tiles, head_dim 128, G 4) and 16 (gathered tiles, head_dim
+    64, G 2): verify windows of 8 queries (one consumer warpgroup) whose
+    keys span three and two ``WINDOW_CHUNK`` chunks (the second with
+    padding rows past its count) beside one that lies in a single chunk
+    and is written directly, in one batch, on bf16 pages without a
+    sliding window and on int8 pages with one; and a 96-query suffix
+    prefill (C·G > 64: two consumer warpgroups) at position 2600 with 6
+    padding rows under a 1500-key window, whose tiles span chunks 1 and 2
+    (the scratch starting at chunk 1), on bf16 and int8 pages.  Each
+    output is held against the plain version and against the plain chunk
+    partials folded by the split walk's combine.  Returns the number of
+    cases."""
+    import torch
+
+    from fusioninfer_tpu_torch.models.quantization import kv_quantize
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    keys, window, n = 3072, 1500, 0
+    starts, counts = i32(2990, 500, 1500), i32(8, 8, 5)
+    for ps, G, Hd in ((128, 4, 128), (16, 2, 64)):
+        B, mp, KV = 3, keys // ps, 2
+        n_pages = B * mp + 1
+        tables = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(SEED))
+        tables = tables[: B * mp].reshape(B, mp).to(torch.int32).cuda()
+        qv, qp = rnd(B, 8, KV * G, Hd), rnd(96, KV * G, Hd)
+        kp, vp = rnd(2, KV, n_pages, ps, Hd), rnd(2, KV, n_pages, ps, Hd)
+        (k8, ks), (v8, vs) = kv_quantize(kp), kv_quantize(vp)
+        scales = (ks[..., None, :].contiguous(), vs[..., None, :].contiguous())
+        cases = [("verify", False, None), ("verify", True, window),
+                 ("suffix prefill", False, window), ("suffix prefill", True, window)]
+        for kind, int8, win in cases:
+            k, v, sc = (k8, v8, scales) if int8 else (kp, vp, ())
+            lsc = tuple(x[1] for x in sc)
+            tag = (f"{kind} split ps {ps} G{G} Hd{Hd} window {win}"
+                   + (" int8" if int8 else ""))
+            if kind == "verify":
+                q, t, s0, c0 = qv, tables, starts, counts
+                out = pa.paged_verify_attention(q, k, v, t, s0, c0, *sc, window=win,
+                                                layer=1)
+            else:
+                q, t, s0, c0 = qp[None], tables[:1], i32(2600), i32(90)
+                out = pa.paged_prefill_attention(qp, k, v, tables[0], 2600, 90, *sc,
+                                                 window=win, layer=1)[None]
+            ref = pa.reference_paged_verify_attention(q, k[1], v[1], t, s0, c0, *lsc,
+                                                      window=win)
+            check_close(out, ref, tag, WINDOW_ROW_TOL, Hd)
+            acc, m, l = pa.reference_window_partials(q, k[1], v[1], t, s0, c0, *lsc,
+                                                     window=win)
+            folded = pa.combine_kvsplit_partials(acc, m, l, q.dtype)
+            check_close(out, folded.reshape(out.shape), tag + " (plain partials)",
+                        WINDOW_ROW_TOL, Hd)
+            n += 1
     return n
 
 
@@ -809,7 +881,7 @@ def main() -> int:
     log(f"[2/7] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     log(f"[3/7] kernels against their plain versions (bf16 and int8 pages, |err| <= "
@@ -826,6 +898,10 @@ def main() -> int:
     prims = {case["name"]: check_primitive(case) for case in cases}
     log(f"  {check_variants(gen)} further cases (windows, ragged S, Hd 64, G 1/2/8, "
         "ps 16, inactive and padding rows, int8) within the bound")
+    log(f"  {check_window_split(gen)} key-split cases (verify over 1, 2 and 3 chunks of "
+        "1024 keys in one batch, a windowed C96 suffix prefill over chunks 1-2; ps 128 / "
+        "Hd 128 and ps 16 / Hd 64, bf16 and int8) within the bound, against the plain "
+        "version and the folded plain partials")
     del cases
     torch.cuda.empty_cache()
 

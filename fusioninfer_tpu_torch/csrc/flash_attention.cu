@@ -4,294 +4,245 @@
 // TPU kernel).  q [B, S, H, Hd], k/v [B, S, KV, Hd] bf16, contiguous;
 // out [B, S, H*Hd] bf16.  Query head h reads KV head h / (H / KV).
 //
-// One block per (64-row q tile, q head, batch row); four warps, each owning
-// 16 q rows for the whole key sweep.  K/V tiles of 64 keys stream through a
-// two-stage cp.async ring in shared memory, so the next tile's loads fly
-// while the current one is computed.  Both products run on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), fed by ldmatrix
-// (transposed for V).  The scores, the online-softmax statistics (f32,
-// base-2 exponent) and the output accumulator stay in registers: a score
-// accumulator's layout is exactly the A-operand layout of the P V product,
-// so P goes from S to the tensor cores without touching shared memory.
-// Tiles wholly above the causal diagonal or below the sliding window are
-// never loaded.  Prefill at the served shapes is bound by operations; this
-// version does not yet use wgmma/TMA or warp specialisation.
+// What bounds it: prefill at the served shapes (S in the thousands, Hd 128)
+// does ~4 S^2 H Hd / 2 FLOP on ~(2 H + 2 KV) S Hd 2 bytes, far above the
+// card's 295 FLOP/byte ridge, so it is bound by the tensor cores, and on
+// Hopper only wgmma reaches their full rate.  The design (the shared parts
+// in hopper_attention.cuh):
+//
+// * Work items of one 128-row q tile of one q head and batch row, run by a
+//   persistent grid of one block per SM.  Items are numbered heaviest first
+//   (reversed tile order: the longest causal sweeps first), with the q
+//   heads of one KV head side by side so their K/V reads hit L2, and a
+//   block walks its items in alternating bands (item_index), which evens
+//   out the causal sweeps across SMs.
+// * Three warpgroups.  Warpgroup 0 is the producer: setmaxnreg lowers it to
+//   40 registers and one thread issues every load as a TMA copy.
+//   Warpgroups 1 and 2 are consumers of 64 q rows each.
+// * Loads: three 3-D tensor maps over q [B, S, H*Hd] and k, v [B, S,
+//   KV*Hd], 64-column boxes with the 128-byte swizzle that wgmma reads.  A
+//   box that runs past S is zero-filled by the hardware and never reads the
+//   next batch row.  K/V tiles of 128 keys stream through a three-stage
+//   ring of mbarriers, "full" (the producer's expect-tx, completed by the
+//   TMA bytes) and "empty" (one arrival per consumer warpgroup), that runs
+//   on across items, so the next item's Q and first tiles load while the
+//   consumers write the current item's output.  No __syncthreads after
+//   the barriers' initialisation.
+// * Products: Q K^T as wgmma m64n128k16 from shared memory, P V as wgmma
+//   m64nHDk16 with P from registers; softmax statistics in f32 registers,
+//   base 2 (ex2.approx).  The consumers take turns on the tensor cores
+//   (consume_pingpong with OVERLAP): in its turn a consumer issues tile
+//   j's Q K^T and tile j - 1's P V back to back, and its softmax of tile
+//   j runs while its own P V and the other consumer's products do.  The
+//   block's 384 threads leave a consumer 168 registers (ptxas allocates
+//   within the launch bound whatever setmaxnreg later grants), just
+//   enough for O, S and P at once.
+// * Masking only where needed: a key tile is masked for a warpgroup only if
+//   it crosses the causal diagonal of its rows, runs past S, or (under a
+//   sliding window) reaches below the window of its last row; interior
+//   tiles skip the compares.  Tiles wholly above the diagonal or below the
+//   window are never loaded.
+//
+// Shared memory: Q 128 x Hd + three stages of K and V 128 x Hd (224 KB at
+// Hd 128), one block per SM.  At 128 x 128 per step each block reads
+// 64 KB of K/V from L2 for 8.4 MFLOP; see PERF.md for what that costs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_attention.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace hopper;
 
-// shared rows padded by 16 bytes so the eight rows one ldmatrix reads
-// fall in distinct banks
-template <int HD>
-__host__ __device__ constexpr int ld_tile() { return HD + 8; }
+constexpr int NC = 2;        // consumer warpgroups, 64 q rows each
+constexpr int BQ = 64 * NC;  // q rows per block
+constexpr int BK = 128;      // keys per tile
+constexpr int NS = 3;        // K/V ring stages
+constexpr int NTHREADS = (NC + 1) * WG_THREADS;
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * ld_tile<HD>();
-}
+struct Layout {
+  static constexpr int Q_BYTES = BQ * HD * 2;  // NC tiles [HD / 64][64][64]
+  static constexpr int SB = stage_bytes<HD, BK, false>();
+  static constexpr int RING = Q_BYTES;
+  static constexpr int BARS = RING + NS * SB;
+  static constexpr int BYTES = BARS + (2 * NS + 2) * 8 + 1024;  // + alignment slack
+};
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+// One consumer warpgroup's mask: its rows are r_lo .. r_lo + 63, this
+// thread's rows r[0] and r[1].
+struct FlashMask {
+  int r_lo, r[2], S, window;
+  bool causal;
 
-// 16-byte global -> shared copy; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// rows [row0, row0 + 64) of a [S, stride] bf16 matrix into a padded tile;
-// rows at or past S are zero-filled
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t stride, int row0, int S, int tid) {
-  constexpr int LDT = ld_tile<HD>();
-  constexpr int CHUNKS = HD / 8;
-#pragma unroll
-  for (int i = tid; i < BK * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool in = row0 + r < S;
-    const __nv_bfloat16* g = src + (size_t)(in ? row0 + r : 0) * stride + c * 8;
-    cp_async16(dst + r * LDT + c * 8, g, in ? 16 : 0);
+  __device__ __forceinline__ bool masked(int k0) const {
+    return (causal && k0 + BK - 1 > r_lo) || k0 + BK > S ||
+           (window > 0 && k0 <= r_lo + 63 - window);
   }
+  __device__ __forceinline__ bool keep(int i, int key) const {
+    return key < S && (!causal || key <= r[i]) && (window <= 0 || r[i] - key < window);
+  }
+  __device__ __forceinline__ bool gathered(int) const { return false; }
+};
+
+// One work item: a 128-row q tile of one q head and batch row, and the key
+// tiles j_lo .. j_hi - 1 any of its rows sees.  Items are numbered
+// heaviest first (reversed tile order, the longest causal sweeps first),
+// with the q heads of one KV head side by side, so their K/V reads hit L2.
+struct Item {
+  int q0, b, h, kvh, j_lo, j_hi;
+
+  __device__ __forceinline__ Item(int w, int S, int H, int KV, int B, int n_qt, int causal,
+                                  int window) {
+    const int tile = n_qt - 1 - w / (H * B);
+    b = (w % (H * B)) / H;
+    h = w % H;
+    kvh = h / (H / KV);
+    q0 = tile * BQ;
+    const int q_last = min(q0 + BQ, S) - 1;
+    const int k_hi = causal ? q_last + 1 : S;
+    const int k_lo = window > 0 ? max(q0 - window + 1, 0) : 0;
+    j_lo = k_lo / BK;
+    j_hi = (k_hi + BK - 1) / BK;
+  }
+};
+
+// The k-th item of a persistent block: bands of gridDim.x items, walked
+// forward in even bands and backward in odd ones, so a block that takes a
+// heavy item in one band takes a light one in the next; -1 past the end.
+__device__ __forceinline__ int item_index(int k, int n_items) {
+  const int w = k * gridDim.x + (k & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  return w < n_items ? w : -1;
 }
 
+// Persistent: each block walks its items (item_index).  The K/V ring and
+// its phases run on across items, so the producer loads the next item's Q
+// and first tiles while the consumers write the current item's output.
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S,
-                 int H, int KV, float scale, int causal, int window) {
-  constexpr int LDT = ld_tile<HD>();
-  constexpr int NT_S = BK / 8;  // n8 score tiles per warp row block
-  constexpr int NT_O = HD / 8;  // n8 output tiles
-  constexpr int KQ = HD / 16;   // k16 steps over the head dim
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + BQ * LDT;      // [2][BK][LDT]
-  __nv_bfloat16* sV = sK + 2 * BK * LDT;  // [2][BK][LDT]
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ out,
+                 int S, int H, int KV, int B, int n_qt, float scale, int causal, int window) {
+  using L = Layout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + L::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + NS;
+  uint64_t* q_full = empty + NS;
+  uint64_t* q_empty = q_full + 1;
+  const int n_items = n_qt * H * B;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within an 8-row group
-  const int t = lane & 3;   // column pair within an n8 tile
-
-  const size_t q_stride = (size_t)H * HD;
-  const size_t kv_stride = (size_t)KV * HD;
-  const __nv_bfloat16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-
-  // key range any row of this tile can see
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int k_hi = causal ? q_last + 1 : S;
-  const int k_lo = window > 0 ? max(q0 - window + 1, 0) : 0;
-  const int j_lo = k_lo / BK;
-  const int j_hi = (k_hi + BK - 1) / BK;
-
-  load_tile<HD>(sQ, qb, q_stride, q0, S, tid);
-  load_tile<HD>(sK, kb, kv_stride, j_lo * BK, S, tid);
-  load_tile<HD>(sV, vb, kv_stride, j_lo * BK, S, tid);
-  cp_async_commit();
-  cp_async_wait_all();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NC);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, NC);
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  // this warp's 16 q rows as A fragments, for the whole sweep
-  unsigned qf[KQ][4];
-#pragma unroll
-  for (int kk = 0; kk < KQ; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT +
-                            kk * 16 + (lane >> 4) * 8);
-
-  const int r0 = q0 + warp * 16 + g;  // this thread's two rows: r0, r0 + 8
-  const int r1 = r0 + 8;
-  const float scale2 = scale * LOG2E;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int cur = (j - j_lo) & 1;
-    if (j + 1 < j_hi) {  // prefetch the next tile into the other stage
-      load_tile<HD>(sK + (cur ^ 1) * BK * LDT, kb, kv_stride, (j + 1) * BK, S, tid);
-      load_tile<HD>(sV + (cur ^ 1) * BK * LDT, vb, kv_stride, (j + 1) * BK, S, tid);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* tK = sK + cur * BK * LDT;
-    const __nv_bfloat16* tV = sV + cur * BK * LDT;
-    const int k0 = j * BK;
-
-    // S = Q K^T for 16 rows x 64 keys
-    float s[NT_S][4];
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT_S / 2; ++np) {
-        unsigned bk[4];
-        ldmatrix_x4(bk, tK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDT + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {  // producer
+    regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int k = 0, w; (w = item_index(k, n_items)) >= 0; ++k) {
+        const Item item(w, S, H, KV, B, n_qt, causal, window);
+        mbar_wait(q_empty, (k & 1) ^ 1);  // the previous item's Q is no longer read
+        mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+        for (int c = 0; c < NC; ++c)
+          for (int half = 0; half < HD / 64; ++half)
+            tma_load_3d(smem + c * 64 * HD * 2 + half * 64 * ROW_BYTES, &mq, q_full,
+                        item.h * HD + half * 64, item.q0 + c * 64, item.b);
+        for (int j = item.j_lo; j < item.j_hi; ++j, ++it) {
+          const int s = it % NS;
+          mbar_wait(empty + s, ((it / NS) & 1) ^ 1);
+          unsigned char* stage = ring + s * L::SB;
+          mbar_arrive_expect_tx(full + s, 2 * BK * HD * 2);
+          for (int half = 0; half < HD / 64; ++half) {
+            tma_load_3d(stage + half * BK * ROW_BYTES, &mk, full + s,
+                        item.kvh * HD + half * 64, j * BK, item.b);
+            tma_load_3d(stage + BK * HD * 2 + half * BK * ROW_BYTES, &mv, full + s,
+                        item.kvh * HD + half * 64, j * BK, item.b);
+          }
+        }
       }
     }
+  } else {  // consumers
+    regs_alloc<232>();
+    const int c = wg - 1;
+    const uint32_t sq = smem_u32(smem + c * 64 * HD * 2);
+    int it = 0;
+    for (int k = 0, w; (w = item_index(k, n_items)) >= 0; ++k) {
+      const Item item(w, S, H, KV, B, n_qt, causal, window);
+      FlashMask mask;
+      mask.r_lo = item.q0 + c * 64;
+      mask.r[0] = mask.r_lo + RowState<HD>::row(0);
+      mask.r[1] = mask.r_lo + RowState<HD>::row(1);
+      mask.S = S;
+      mask.window = window;
+      mask.causal = causal != 0;
+      RowState<HD> st;
+      st.init();
+      mbar_wait(q_full, k & 1);
+      consume_pingpong<HD, BK, NS, false, true>(st, c, sq, ring, full, empty, item.j_lo,
+                                                item.j_hi, scale * LOG2E, mask, it);
+      it += item.j_hi - item.j_lo;
+      if (threadIdx.x % WG_THREADS == 0) mbar_arrive(q_empty);
 
-    // mask, then the online softmax in base 2 (rows r0 and r1)
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+      const size_t q_stride = (size_t)H * HD;
 #pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
+      for (int i = 0; i < 2; ++i) {
+        const float inv = 1.f / fmaxf(quad_sum(st.l[i]), 1e-20f);
+        const int r = mask.r[i];
+        if (r >= S) continue;
+        __nv_bfloat16* o = out + ((size_t)item.b * S + r) * q_stride + (size_t)item.h * HD;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kpos = k0 + n * 8 + 2 * t + e;
-        const bool kin = kpos < S;
-        const bool keep0 = kin && (!causal || kpos <= r0) && (window <= 0 || r0 - kpos < window);
-        const bool keep1 = kin && (!causal || kpos <= r1) && (window <= 0 || r1 - kpos < window);
-        s[n][e] = keep0 ? s[n][e] * scale2 : -INFINITY;
-        s[n][2 + e] = keep1 ? s[n][2 + e] * scale2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[n][e]);
-        mx1 = fmaxf(mx1, s[n][2 + e]);
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(o + RowState<HD>::col(j, 0)) =
+              __floats2bfloat162_rn(st.o[4 * j + 2 * i] * inv, st.o[4 * j + 2 * i + 1] * inv);
       }
     }
-    const float m_new0 = fmaxf(m_run[0], quad_max(mx0));
-    const float m_new1 = fmaxf(m_run[1], quad_max(mx1));
-    const float mu0 = m_new0 == -INFINITY ? 0.f : m_new0;  // fully masked so far
-    const float mu1 = m_new1 == -INFINITY ? 0.f : m_new1;
-    const float alpha0 = exp2f(m_run[0] - mu0);
-    const float alpha1 = exp2f(m_run[1] - mu1);
-    m_run[0] = m_new0;
-    m_run[1] = m_new1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-      s[n][0] = exp2f(s[n][0] - mu0);
-      s[n][1] = exp2f(s[n][1] - mu0);
-      s[n][2] = exp2f(s[n][2] - mu1);
-      s[n][3] = exp2f(s[n][3] - mu1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    l_run[0] = l_run[0] * alpha0 + sum0;  // per-thread partial; quad-summed at the end
-    l_run[1] = l_run[1] * alpha1 + sum1;
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-
-    // O += P V: P's accumulator layout is the A-fragment layout
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < NT_O / 2; ++dp) {
-        unsigned bv[4];
-        ldmatrix_x4_trans(bv, tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
-
-    cp_async_wait_all();
-    __syncthreads();  // next tile landed; every warp is done with this stage
-  }
-
-  const float l0 = quad_sum(l_run[0]);
-  const float l1 = quad_sum(l_run[1]);
-  const float inv0 = 1.f / fmaxf(l0, 1e-20f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-20f);
-  __nv_bfloat16* o0 = out + ((size_t)b * S + r0) * q_stride + (size_t)h * HD + 2 * t;
-  __nv_bfloat16* o1 = out + ((size_t)b * S + r1) * q_stride + (size_t)h * HD + 2 * t;
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(o0 + n * 8) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(o1 + n * 8) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
            int KV, float scale, int causal, int window, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<HD>();
+  using L = Layout<HD>;
+  // 3-D maps, innermost first: [B][S][heads * HD] with 64-column boxes
+  CUtensorMap mq, mk, mv;
+  const cuuint64_t q_dims[3] = {(cuuint64_t)H * HD, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t q_strides[2] = {(cuuint64_t)H * HD * 2, (cuuint64_t)S * H * HD * 2};
+  const cuuint32_t q_box[3] = {64, 64, 1};
+  const cuuint64_t kv_dims[3] = {(cuuint64_t)KV * HD, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t kv_strides[2] = {(cuuint64_t)KV * HD * 2, (cuuint64_t)S * KV * HD * 2};
+  const cuuint32_t kv_box[3] = {64, BK, 1};
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int err = encode_map(&mq, bf16, 3, q, q_dims, q_strides, q_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = encode_map(&mk, bf16, 3, k, kv_dims, kv_strides, kv_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = encode_map(&mv, bf16, 3, v, kv_dims, kv_strides, kv_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
   // set once, outside any CUDA-graph capture that later launches replay
   static bool smem_attr_set = false;
   if (!smem_attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (e != cudaSuccess) return (int)e;
     smem_attr_set = true;
   }
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, KV,
-      scale, causal, window);
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  const cudaError_t e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_items = n_qt * H * B;
+  flash_fwd_kernel<HD><<<min(n_items, n_sm), NTHREADS, L::BYTES, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, H, KV, B, n_qt, scale, causal, window);
   return (int)cudaGetLastError();
 }
 

@@ -12,433 +12,531 @@
 // pages; rows i >= counts[b] are padding and come out as zeros, so
 // counts[b] = 0 is an inactive slot.  out [B, C, H * Hd] bf16.
 //
-// One block of four warps per (64-row tile, KV head, sequence).  A tile's
-// rows are (query, group head) pairs, row i * G + g for query i and head g
-// of the KV head's G query heads, as on the TPU: every K/V tile a block
-// reads serves all G heads.  Each warp owns 16 rows for the whole key
-// sweep; K/V tiles of 64 keys are read through the page table (each key
-// row finds its own page, so a tile may span pages of any size) into a
-// two-stage cp.async ring in shared memory.  Both products run on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), and the
-// scores, the online-softmax statistics (f32, base 2) and the output stay
-// in registers, as in csrc/flash_attention.cu.  The causal wavefront bounds
-// each tile's sweep: it stops after the last real query's position, and
-// under a window starts at the first key the tile's first query sees.
+// What bounds it: verify at small C reads every live page byte once for a
+// few queries each, so it is bound by bytes, and its few (tile, KV head,
+// sequence) blocks each walk thousands of keys; prefill at C in the
+// hundreds is bound by operations.  The design (shared parts in
+// hopper_attention.cuh):
 //
-// int8 pages are staged raw and widened to bf16 in shared memory (int8
-// values are exact in bf16); the K scale multiplies each score after the
-// Q K^T product and the V scale each probability before P V, so no page
-// is dequantized.  Prefill at C in the hundreds is bound by operations,
-// verify at small C by the bytes of the pages.
+// * Rows: a tile's rows are (query, group head) pairs, row i * G + g for
+//   query i and head g of the KV head's G query heads, as on the TPU, so
+//   every K/V tile a block reads serves all G heads.  One consumer
+//   warpgroup owns 64 rows; a block has two where C * G > 64 and one where
+//   C * G <= 64 (verify), so a tile is not mostly padding.  Both products
+//   run as wgmma (Q K^T m64nBKk16, P V m64nHDk16 with P from registers),
+//   softmax statistics in f32 registers.  Two consumer warpgroups take
+//   turns on the tensor cores (consume_pingpong) on 128-key tiles (64 with
+//   int8 pages, for the raw ring's room), each letting its P V land before
+//   it issues the next Q K^T: this consumer keeps more state live than
+//   flash's, and with both products in flight it spills; one warpgroup
+//   runs software-pipelined (consume) on 64-key tiles.
+// * Key split: the key range is cut into fixed chunks of CHUNK positions;
+//   the boundaries depend only on key position.  Each (tile, KV head,
+//   sequence, chunk) is its own block.  A tile whose keys lie in one chunk
+//   writes its output directly; otherwise every chunk's block writes f32
+//   partials (acc, m, l) and window_combine_kernel folds them left to right
+//   with the split walk's arithmetic (hopper::fold).  The result depends
+//   only on the chunking, never on how many blocks ran, and verify's 64
+//   blocks become ~4x as many with chains of at most CHUNK / BK tiles.
+//   The scratch and the grid hold n_chunks slots per sequence, which the
+//   caller sizes to the most chunks any live sequence's keys touch; slot 0
+//   is the chunk of the sequence's first key (first_chunk), so a sliding
+//   window costs the chunks it covers, not those below it.
+// * Producer warpgroup (setmaxnreg lowers it to 40 registers), warp 0 the
+//   loader.  Q comes by one 3-D TMA copy per 64-column block over q viewed
+//   as [B*C][H][Hd] (box 64 / G queries x G heads), which lands the rows in
+//   (query, head) order.  A K/V tile that lies whole in one page and ends
+//   at or before the last key (page size a multiple of BK) comes by TMA
+//   over the layer's pool viewed as rows [KV * n_pages * ps, Hd]: one copy
+//   per page segment, one table lookup per tile.  Every other tile (page
+//   sizes below BK, and the ragged last tile of a range) is gathered by the
+//   same warp with cp.async, each key row finding its page, rows past the
+//   last key zero-filled, into the same swizzled layout; each lane's copies
+//   complete on the stage's "full" mbarrier (cp.async.mbarrier.arrive), and
+//   the consumers fence the async proxy before wgmma reads such a tile.
+//   So no byte past the last key, and no page past it, is ever read.
+// * int8 pages: the loader stages raw int8 rows (TMA without swizzle, and
+//   the tile's scales by bulk copy; or the gather) in a second ring, and
+//   the producer's warps 1-3 widen them to bf16 into the swizzled stage
+//   (exactly, int8 values being exact in bf16, and with full-rate integer
+//   and f32 adds rather than conversions: widen16), copy the scales, fence
+//   the async proxy and arrive.  The K scale multiplies each score after Q K^T and the V
+//   scale each probability before P V, so no page is dequantized.
+// * Only tiles that cross a row's causal position or reach below a row's
+//   window are masked; rows past counts[b] are zeroed at the end.  No
+//   __syncthreads in the key loop.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <string.h>
+
+#include "hopper_attention.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // (query, head) rows per tile
-constexpr int BK = 64;  // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace hopper;
 
-// bf16 rows padded by 16 bytes so the eight rows one ldmatrix reads fall in
-// distinct banks; raw int8 staging rows likewise
-template <int HD>
-__host__ __device__ constexpr int ld_tile() { return HD + 8; }
-template <int HD>
-__host__ __device__ constexpr int ld_raw() { return HD + 16; }
+constexpr int CHUNK = 1024;  // key positions per split chunk (ops/paged_attention.py WINDOW_CHUNK)
+// keys per K/V tile: 128 for two consumer warpgroups on bf16 pages, 64
+// for one warpgroup (short windows: shorter tiles, and its pipelined loop
+// holds S, P and O at once) and for int8 pages (room for the raw ring)
+template <int NC, bool Q8>
+__host__ __device__ constexpr int tile_keys() { return NC == 2 && !Q8 ? 128 : 64; }
 
-template <int HD, bool Q8>
-constexpr size_t smem_bytes() {
-  // sQ + two K and two V stages (bf16), or sQ + widened K, V + two raw
-  // stages of K and V + the tile's scales (int8)
-  const size_t tile = sizeof(__nv_bfloat16) * (size_t)BQ * ld_tile<HD>();
-  if (!Q8) return 5 * tile;
-  return 3 * tile + 4 * (size_t)BK * ld_raw<HD>() + 2 * BK * sizeof(float);
+// ring stages
+template <int NC, bool Q8>
+__host__ __device__ constexpr int stages() { return NC == 1 && !Q8 ? 4 : 3; }
+
+template <int HD, int NC, bool Q8>
+struct Layout {
+  static constexpr int BK = tile_keys<NC, Q8>();
+  static constexpr int NS = stages<NC, Q8>();
+  static constexpr int Q_BYTES = NC * 64 * HD * 2;
+  static constexpr int SB = stage_bytes<HD, BK, Q8>();
+  // raw int8 stage: K rows, V rows [BK][HD], K scales, V scales [BK]
+  static constexpr int RAW_SB = Q8 ? round_up(2 * BK * HD + 2 * BK * 4, 1024) : 0;
+  static constexpr int RING = Q_BYTES;
+  static constexpr int RAW = RING + NS * SB;
+  static constexpr int BARS = RAW + NS * RAW_SB;
+  static constexpr int BYTES = BARS + (1 + 4 * NS) * 8 + 1024;  // + alignment slack
+};
+
+struct Params {
+  const unsigned char* k;  // the layer's pools, rows of HD elements
+  const unsigned char* v;
+  const float* ks;  // the layer's scales (int8 pages), one per row
+  const float* vs;
+  const int* tables;
+  const int* starts;
+  const int* counts;
+  __nv_bfloat16* out;
+  float* acc_p;  // split partials [n_chunks][B][C][H][HD], m / l [n_chunks][B][C][H],
+                 // slot s of sequence b holding chunk first_chunk(b) + s
+  float* m_p;
+  float* l_p;
+  int B, C, KV, G, n_pages, ps, mp, window, n_chunks, use_tma;
+  float scale;
+};
+
+// Keys [k_lo, k_hi) that some live row of the tile of `rows` rows at
+// tile0 sees; empty when it has no live row.  The kernel and the combine
+// compute it alike.
+struct TileRange {
+  int k_lo, k_hi;
+  __device__ __forceinline__ bool empty() const { return k_lo >= k_hi; }
+};
+
+__device__ __forceinline__ TileRange tile_range(const Params& p, int tile0, int rows, int b) {
+  const int count = min(p.counts[b], p.C);
+  const int start = p.starts[b];
+  const int i_first = tile0 / p.G;
+  const int i_last = min(min(tile0 + rows, p.C * p.G) / p.G, count) - 1;  // last live query
+  TileRange r;
+  r.k_hi = i_last >= i_first ? min(start + i_last + 1, p.mp * p.ps) : 0;
+  r.k_lo = p.window > 0 ? max(start + i_first - p.window + 1, 0) : 0;
+  return r;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// The chunk of sequence b's first key, its scratch slot 0: no tile of b
+// reaches below it.
+__device__ __forceinline__ int first_chunk(const Params& p, int b) {
+  return p.window > 0 ? max(p.starts[b] - p.window + 1, 0) / CHUNK : 0;
 }
 
-// 16-byte global -> shared copy; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
+// One consumer warpgroup's mask; positions are start + row / G.
+template <int BK>
+struct WindowMask {
+  int p_first, p_last, p[2], window, k_hi;
+  bool tma;
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// pool row (page * ps + slot) of key kpos of the sequence, -1 past k_hi
-__device__ __forceinline__ long long key_row(const int* table, int ps, int kpos, int k_hi) {
-  return kpos < k_hi ? (long long)table[kpos / ps] * ps + kpos % ps : -1;
-}
-
-// keys [k0, k0 + 64) of one pool (rows of ROW_BYTES) into a tile of rows
-// LD_BYTES apart; keys at or past k_hi are zero-filled
-template <int ROW_BYTES, int LD_BYTES>
-__device__ __forceinline__ void load_keys(unsigned char* dst, const unsigned char* pool,
-                                          const int* table, int ps, int k0, int k_hi,
-                                          int tid) {
-  constexpr int CH = ROW_BYTES / 16;
-#pragma unroll
-  for (int i = tid; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    const long long row = key_row(table, ps, k0 + r, k_hi);
-    const unsigned char* src = pool + (row < 0 ? 0 : row) * ROW_BYTES + c * 16;
-    cp_async16(dst + r * LD_BYTES + c * 16, src, row < 0 ? 0 : 16);
+  __device__ __forceinline__ bool masked(int k0) const {
+    return k0 + BK - 1 > p_first || (window > 0 && k0 <= p_last - window);
   }
-}
-
-// widen a staged int8 tile to bf16 (exact)
-template <int HD>
-__device__ __forceinline__ void widen_tile(__nv_bfloat16* dst, const int8_t* src, int tid) {
-  constexpr int CH = HD / 16;
-#pragma unroll
-  for (int i = tid; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * ld_raw<HD>() + c * 16);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-    unsigned o[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = pack_bf16((float)b[2 * k], (float)b[2 * k + 1]);
-    uint4* d = reinterpret_cast<uint4*>(dst + r * ld_tile<HD>() + c * 16);
-    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  __device__ __forceinline__ bool keep(int i, int key) const {
+    return key <= p[i] && (window <= 0 || p[i] - key < window);
   }
+  __device__ __forceinline__ bool gathered(int k0) const { return !(tma && k0 + BK <= k_hi); }
+};
+
+// int8 -> bf16 for 16 values (two 16-byte chunks), exactly and at full
+// rate: byte u = x + 128 goes into the mantissa of 2^23 (0x4B0000uu), the
+// f32 subtraction of 2^23 + 128 leaves x, and x (|x| <= 128) has no bits
+// below bf16's, so the upper half of each f32 is the bf16.
+__device__ __forceinline__ void widen16(const uint4& raw, uint4& lo, uint4& hi) {
+  const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = in[i] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b)) - 8388736.f;
+    w[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    w[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
+  lo = make_uint4(w[0], w[1], w[2], w[3]);
+  hi = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-template <int HD, int G, bool Q8>
-__global__ void __launch_bounds__(NTHREADS)
-window_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pages,
-              const void* __restrict__ v_pages, const float* __restrict__ k_scales,
-              const float* __restrict__ v_scales, const int* __restrict__ page_tables,
-              const int* __restrict__ starts, const int* __restrict__ counts,
-              __nv_bfloat16* __restrict__ out, int C, int KV, int n_pages, int ps, int mp,
-              int layer, float scale, int window) {
-  constexpr int LDT = ld_tile<HD>();
-  constexpr int LDR = ld_raw<HD>();
-  constexpr int EB = Q8 ? 1 : 2;  // page element bytes
-  constexpr int NT_S = BK / 8;    // n8 score tiles per warp row block
-  constexpr int NT_O = HD / 8;    // n8 output tiles
-  constexpr int KQ = HD / 16;     // k16 steps over the head dim
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + BQ * LDT;  // bf16: [2][BK][LDT]; int8: widened [BK][LDT]
-  __nv_bfloat16* sV = sK + (Q8 ? 1 : 2) * BK * LDT;
-  int8_t* rawK = reinterpret_cast<int8_t*>(sV + (Q8 ? 1 : 2) * BK * LDT);  // [2][BK][LDR]
-  int8_t* rawV = rawK + 2 * BK * LDR;
-  float* sKs = reinterpret_cast<float*>(rawV + 2 * BK * LDR);
-  float* sVs = sKs + BK;
+template <int HD, int NC, bool Q8>
+__global__ void __launch_bounds__((NC + 1) * WG_THREADS, 1)
+window_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv, const Params p) {
+  using L = Layout<HD, NC, Q8>;
+  constexpr int BK = L::BK;
+  constexpr int NS = L::NS;
+  constexpr int BQT = 64 * NC;      // rows per tile
+  constexpr int TILE = BK * HD * 2;  // bytes of one bf16 K or V tile
+  constexpr int EB = Q8 ? 1 : 2;     // page element bytes
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + L::RING;
+  unsigned char* raw = smem + L::RAW;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + NS;
+  uint64_t* raw_full = empty + NS;
+  uint64_t* raw_empty = raw_full + NS;
 
-  const int tile0 = blockIdx.x * BQ;  // first (query, head) row of the tile
+  const int tile0 = blockIdx.x * BQT;
   const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = KV * G;
-  const int n_rows = C * G;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g8 = lane >> 2;  // row within an 8-row group
-  const int t = lane & 3;    // column pair within an n8 tile
+  const int b = blockIdx.z / p.n_chunks;
+  const int slot = blockIdx.z % p.n_chunks;
+  const int chunk = first_chunk(p, b) + slot;
+  const int H = p.KV * p.G;
+  const int n_rows = p.C * p.G;
 
-  const int start = starts[b];
-  const int count = min(counts[b], C);
-  const int* table = page_tables + (size_t)b * mp;
-  const size_t pool_rows = ((size_t)layer * KV + kvh) * (size_t)n_pages * ps;
-  const unsigned char* kpool =
-      static_cast<const unsigned char*>(k_pages) + pool_rows * HD * EB;
-  const unsigned char* vpool =
-      static_cast<const unsigned char*>(v_pages) + pool_rows * HD * EB;
-
-  // keys any real row of this tile can see
-  const int i_first = tile0 / G;
-  const int i_last = min(min(tile0 + BQ, n_rows) / G, count) - 1;  // last real query
-  const int k_hi = i_last >= i_first ? min(start + i_last + 1, mp * ps) : 0;
-  const int k_lo = window > 0 ? max(start + i_first - window + 1, 0) : 0;
-  const int j_lo = k_lo / BK;
-  const int j_hi = k_lo < k_hi ? (k_hi + BK - 1) / BK : j_lo;
-
-  auto load_kv = [&](int j, int stage) {
-    if constexpr (Q8) {
-      load_keys<HD, LDR>(reinterpret_cast<unsigned char*>(rawK + stage * BK * LDR), kpool,
-                         table, ps, j * BK, k_hi, tid);
-      load_keys<HD, LDR>(reinterpret_cast<unsigned char*>(rawV + stage * BK * LDR), vpool,
-                         table, ps, j * BK, k_hi, tid);
-    } else {
-      load_keys<2 * HD, 2 * LDT>(reinterpret_cast<unsigned char*>(sK + stage * BK * LDT),
-                                 kpool, table, ps, j * BK, k_hi, tid);
-      load_keys<2 * HD, 2 * LDT>(reinterpret_cast<unsigned char*>(sV + stage * BK * LDT),
-                                 vpool, table, ps, j * BK, k_hi, tid);
+  const TileRange tr = tile_range(p, tile0, BQT, b);
+  if (tr.empty()) {  // padding rows only: zeros, written once
+    if (slot == 0) {
+      const int rows = min(BQT, n_rows - tile0);
+      for (int i = threadIdx.x; i < rows * HD / 8; i += blockDim.x) {
+        const int R = tile0 + i / (HD / 8);
+        __nv_bfloat16* o = p.out + (((size_t)b * p.C + R / p.G) * H + kvh * p.G + R % p.G) * HD;
+        reinterpret_cast<uint4*>(o)[i % (HD / 8)] = make_uint4(0, 0, 0, 0);
+      }
     }
-  };
-
-  // the tile's q rows: row r is query (tile0 + r) / G, head (tile0 + r) % G
-  for (int i = tid; i < BQ * (HD / 8); i += NTHREADS) {
-    const int r = i / (HD / 8), c = i % (HD / 8);
-    const int R = tile0 + r;
-    const bool in = R < n_rows;
-    const __nv_bfloat16* src =
-        q + (((size_t)b * C + (in ? R / G : 0)) * H + kvh * G + (in ? R % G : 0)) * HD + c * 8;
-    cp_async16(sQ + r * LDT + c * 8, src, in ? 16 : 0);
+    return;
   }
-  if (j_lo < j_hi) load_kv(j_lo, 0);
-  cp_async_commit();
-  cp_async_wait_all();
+  const int c_first = tr.k_lo / CHUNK;
+  const int c_last = (tr.k_hi - 1) / CHUNK;
+  if (c_last - first_chunk(p, b) >= p.n_chunks) __trap();  // scratch sized too small
+  if (chunk < c_first || chunk > c_last) return;
+  const bool split = c_last > c_first;
+  const int j_lo = max(tr.k_lo, chunk * CHUNK) / BK;
+  const int j_hi = (min(tr.k_hi, (chunk + 1) * CHUNK) + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, Q8 ? 96 : 32);  // wideners, or the loader's lanes
+      mbar_init(empty + s, NC);
+      if (Q8) {
+        mbar_init(raw_full + s, 32);
+        mbar_init(raw_empty + s, 96);
+      }
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  unsigned qf[KQ][4];
-#pragma unroll
-  for (int kk = 0; kk < KQ; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT +
-                            kk * 16 + (lane >> 4) * 8);
-
-  // this thread's two rows, their query positions and liveness
-  const int R0 = tile0 + warp * 16 + g8;
-  const int R1 = R0 + 8;
-  const bool live0 = R0 < n_rows && R0 / G < count;
-  const bool live1 = R1 < n_rows && R1 / G < count;
-  const int p0 = start + R0 / G;
-  const int p1 = start + R1 / G;
-  const float scale2 = scale * LOG2E;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int cur = (j - j_lo) & 1;
-    const int k0 = j * BK;
-    if constexpr (Q8) {
-      widen_tile<HD>(sK, rawK + cur * BK * LDR, tid);
-      widen_tile<HD>(sV, rawV + cur * BK * LDR, tid);
-      if (tid < BK) {
-        const long long row = key_row(table, ps, k0 + tid, k_hi);
-        sKs[tid] = row < 0 ? 0.f : k_scales[pool_rows + row];
-        sVs[tid] = row < 0 ? 0.f : v_scales[pool_rows + row];
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {  // producer
+    regs_dealloc<40>();
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp == 0) {  // loader
+      if (lane == 0) {
+        mbar_arrive_expect_tx(qbar, L::Q_BYTES);
+        for (int c = 0; c < NC; ++c)
+          for (int half = 0; half < HD / 64; ++half)
+            tma_load_3d(smem + c * 64 * HD * 2 + half * 64 * ROW_BYTES, &mq, qbar, half * 64,
+                        kvh * p.G, b * p.C + (tile0 + c * 64) / p.G);
       }
-      __syncthreads();
-    }
-    if (j + 1 < j_hi) load_kv(j + 1, cur ^ 1);  // the next tile flies meanwhile
-    cp_async_commit();
-    const __nv_bfloat16* tK = Q8 ? sK : sK + cur * BK * LDT;
-    const __nv_bfloat16* tV = Q8 ? sV : sV + cur * BK * LDT;
-
-    // S = Q K^T for 16 rows x 64 keys
-    float s[NT_S][4];
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT_S / 2; ++np) {
-        unsigned bk[4];
-        ldmatrix_x4(bk, tK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDT + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      const int* table = p.tables + (size_t)b * p.mp;
+      uint64_t* fill = Q8 ? raw_full : full;
+      uint64_t* drain = Q8 ? raw_empty : empty;
+      int it = 0;
+      for (int j = j_lo; j < j_hi; ++j, ++it) {
+        const int s = it % NS;
+        mbar_wait(drain + s, ((it / NS) & 1) ^ 1);
+        unsigned char* dst = Q8 ? raw + s * L::RAW_SB : ring + s * L::SB;
+        const int k0 = j * BK;
+        if (p.use_tma && k0 + BK <= tr.k_hi) {  // one page segment: TMA
+          if (lane == 0) {
+            const int row = (kvh * p.n_pages + table[k0 / p.ps]) * p.ps + k0 % p.ps;
+            if (Q8) {
+              mbar_arrive_expect_tx(fill + s, 2 * BK * HD + 2 * BK * 4);
+              tma_load_2d(dst, &mk, fill + s, 0, row);
+              tma_load_2d(dst + BK * HD, &mv, fill + s, 0, row);
+              bulk_load(dst + 2 * BK * HD, p.ks + row, BK * 4, fill + s);
+              bulk_load(dst + 2 * BK * HD + BK * 4, p.vs + row, BK * 4, fill + s);
+            } else {
+              mbar_arrive_expect_tx(fill + s, 2 * TILE);
+              for (int half = 0; half < HD / 64; ++half) {
+                tma_load_2d(dst + half * BK * ROW_BYTES, &mk, fill + s, half * 64, row);
+                tma_load_2d(dst + TILE + half * BK * ROW_BYTES, &mv, fill + s, half * 64, row);
+              }
+            }
+          } else {
+            mbar_arrive(fill + s);
+          }
+        } else {  // gather: each key row finds its page; past k_hi zero-filled
+          constexpr int CH = HD * EB / 16;  // 16-byte chunks per pool row
+#pragma unroll 4
+          for (int i = lane; i < BK * CH; i += 32) {
+            const int r = i / CH, c = i % CH;
+            const int key = k0 + r;
+            const bool live = key < tr.k_hi;
+            const size_t row =
+                live ? ((size_t)kvh * p.n_pages + table[key / p.ps]) * p.ps + key % p.ps : 0;
+            const size_t src = row * HD * EB + c * 16;
+            const int off = Q8 ? r * HD + c * 16 : swizzled(BK, r, c);
+            const int kv_off = Q8 ? BK * HD : TILE;
+            cp_async16(dst + off, p.k + src, live ? 16 : 0);
+            cp_async16(dst + kv_off + off, p.v + src, live ? 16 : 0);
+          }
+          if (Q8) {
+            for (int r = lane; r < BK; r += 32) {
+              const int key = k0 + r;
+              const bool live = key < tr.k_hi;
+              const size_t row =
+                  live ? ((size_t)kvh * p.n_pages + table[key / p.ps]) * p.ps + key % p.ps : 0;
+              cp_async4(dst + 2 * BK * HD + 4 * r, p.ks + row, live ? 4 : 0);
+              cp_async4(dst + 2 * BK * HD + BK * 4 + 4 * r, p.vs + row, live ? 4 : 0);
+            }
+          }
+          cp_async_arrive(fill + s);
+        }
+      }
+      // stay until every stage has been released, so no copy of this warp
+      // is still in flight when it exits
+      for (int n = 0; n < NS; ++n, ++it) mbar_wait(drain + it % NS, ((it / NS) & 1) ^ 1);
+    } else if (Q8) {  // warps 1-3 widen the raw int8 stages into the bf16 ring
+      const int wt = threadIdx.x - 32;
+      for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
+        const int s = it % NS;
+        const uint32_t ph = (it / NS) & 1;
+        mbar_wait(raw_full + s, ph);
+        mbar_wait(empty + s, ph ^ 1);
+        const unsigned char* src = raw + s * L::RAW_SB;
+        unsigned char* stage = ring + s * L::SB;
+        constexpr int CH = HD / 16;  // 16-byte raw chunks per row
+        for (int i = wt; i < 2 * BK * CH; i += 96) {
+          const int kv = i / (BK * CH), r = (i / CH) % BK, c = i % CH;
+          const uint4 x = *reinterpret_cast<const uint4*>(src + kv * BK * HD + r * HD + c * 16);
+          uint4 lo, hi;
+          widen16(x, lo, hi);
+          unsigned char* tile = stage + kv * TILE;
+          *reinterpret_cast<uint4*>(tile + swizzled(BK, r, 2 * c)) = lo;
+          *reinterpret_cast<uint4*>(tile + swizzled(BK, r, 2 * c + 1)) = hi;
+        }
+        for (int i = wt; i < 2 * BK; i += 96)
+          reinterpret_cast<float*>(stage + 2 * TILE)[i] =
+              reinterpret_cast<const float*>(src + 2 * BK * HD)[i];
+        fence_proxy_async();
+        mbar_arrive(full + s);
+        mbar_arrive(raw_empty + s);
       }
     }
+  } else {  // consumers
+    if (NC == 2) regs_alloc<232>();  // one warpgroup keeps what it was launched with
+    const int c = wg - 1;
+    const int start = p.starts[b];
+    const int count = min(p.counts[b], p.C);
+    const int R0 = tile0 + c * 64;
+    WindowMask<BK> mask;
+    mask.p_first = start + R0 / p.G;
+    mask.p_last = start + (R0 + 63) / p.G;
+    mask.p[0] = start + (R0 + RowState<HD>::row(0)) / p.G;
+    mask.p[1] = start + (R0 + RowState<HD>::row(1)) / p.G;
+    mask.window = p.window;
+    mask.k_hi = tr.k_hi;
+    mask.tma = p.use_tma != 0;
+    RowState<HD> st;
+    st.init();
+    mbar_wait(qbar, 0);
+    const uint32_t sq = smem_u32(smem + c * 64 * HD * 2);
+    if constexpr (NC == 2)
+      consume_pingpong<HD, BK, NS, Q8, false>(st, c, sq, ring, full, empty, j_lo, j_hi,
+                                              p.scale * LOG2E, mask);
+    else
+      consume<HD, BK, NS, Q8>(st, sq, ring, full, empty, j_lo, j_hi, p.scale * LOG2E, mask);
 
-    // K scale, mask, then the online softmax in base 2 (rows R0 and R1)
-    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
+    for (int i = 0; i < 2; ++i) {
+      const float l = quad_sum(st.l[i]);
+      const int R = R0 + RowState<HD>::row(i);
+      if (R >= n_rows) continue;
+      const int qi = R / p.G;
+      const bool live = qi < count;
+      const size_t idx = ((size_t)b * p.C + qi) * H + kvh * p.G + R % p.G;
+      if (!split) {
+        const float inv = 1.f / fmaxf(l, 1e-20f);
+        __nv_bfloat16* o = p.out + idx * HD;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n * 8 + 2 * t + e;
-        const int kpos = k0 + col;
-        const float sc = Q8 ? scale2 * sKs[col] : scale2;
-        const bool kin = kpos < k_hi;
-        const bool keep0 = live0 && kin && kpos <= p0 && (window <= 0 || p0 - kpos < window);
-        const bool keep1 = live1 && kin && kpos <= p1 && (window <= 0 || p1 - kpos < window);
-        s[n][e] = keep0 ? s[n][e] * sc : -INFINITY;
-        s[n][2 + e] = keep1 ? s[n][2 + e] * sc : -INFINITY;
-        mx0 = fmaxf(mx0, s[n][e]);
-        mx1 = fmaxf(mx1, s[n][2 + e]);
-      }
-    }
-    const float m_new0 = fmaxf(m_run[0], quad_max(mx0));
-    const float m_new1 = fmaxf(m_run[1], quad_max(mx1));
-    const float mu0 = m_new0 == -INFINITY ? 0.f : m_new0;  // fully masked so far
-    const float mu1 = m_new1 == -INFINITY ? 0.f : m_new1;
-    const float alpha0 = exp2f(m_run[0] - mu0);
-    const float alpha1 = exp2f(m_run[1] - mu1);
-    m_run[0] = m_new0;
-    m_run[1] = m_new1;
-    float sum0 = 0.f, sum1 = 0.f;
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(o + RowState<HD>::col(j, 0)) =
+              live ? __floats2bfloat162_rn(st.o[4 * j + 2 * i] * inv,
+                                           st.o[4 * j + 2 * i + 1] * inv)
+                   : __floats2bfloat162_rn(0.f, 0.f);
+      } else {  // partials, natural-log units; padding rows are (0, -inf, 0)
+        const size_t pidx = (size_t)slot * p.B * p.C * H + idx;
+        float* a = p.acc_p + pidx * HD;
 #pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[n][e] = exp2f(s[n][e] - mu0);
-        s[n][2 + e] = exp2f(s[n][2 + e] - mu1);
-        sum0 += s[n][e];
-        sum1 += s[n][2 + e];
-        if constexpr (Q8) {  // the V scale weights P V, not the sum
-          const float vs = sVs[n * 8 + 2 * t + e];
-          s[n][e] *= vs;
-          s[n][2 + e] *= vs;
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<float2*>(a + RowState<HD>::col(j, 0)) =
+              live ? make_float2(st.o[4 * j + 2 * i], st.o[4 * j + 2 * i + 1])
+                   : make_float2(0.f, 0.f);
+        if ((threadIdx.x & 3) == 0) {
+          p.m_p[pidx] = live ? st.m[i] * LN2 : -INFINITY;
+          p.l_p[pidx] = live ? l : 0.f;
         }
       }
     }
-    l_run[0] = l_run[0] * alpha0 + sum0;  // per-thread partial; quad-summed at the end
-    l_run[1] = l_run[1] * alpha1 + sum1;
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-
-    // O += P V: P's accumulator layout is the A-fragment layout
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < NT_O / 2; ++dp) {
-        unsigned bv[4];
-        ldmatrix_x4_trans(bv, tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
-
-    cp_async_wait_all();
-    __syncthreads();  // next tile landed; every warp is done with this one
-  }
-
-  // padding rows and rows that saw no key come out as 0 / 1e-20 = 0
-  const float inv0 = 1.f / fmaxf(quad_sum(l_run[0]), 1e-20f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l_run[1]), 1e-20f);
-  const size_t q_stride = (size_t)H * HD;
-  __nv_bfloat16* o0 = out + ((size_t)b * C + R0 / G) * q_stride + (kvh * G + R0 % G) * HD + 2 * t;
-  __nv_bfloat16* o1 = out + ((size_t)b * C + R1 / G) * q_stride + (kvh * G + R1 % G) * HD + 2 * t;
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    if (R0 < n_rows)
-      *reinterpret_cast<__nv_bfloat162*>(o0 + n * 8) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (R1 < n_rows)
-      *reinterpret_cast<__nv_bfloat162*>(o1 + n * 8) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
-template <int HD, int G, bool Q8>
-int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-           const int* tables, const int* starts, const int* counts, void* out, int B, int C,
-           int KV, int n_pages, int ps, int mp, int layer, float scale, int window,
-           cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD, Q8>();
+// Fold the chunk partials of every split tile, left to right: one warp per
+// output row (HD / 32 columns per lane), eight rows per block; grid
+// (tile * rows_per_tile / 8 + row group, KV head, sequence).
+template <int HD>
+__global__ void __launch_bounds__(256)
+window_combine_kernel(const Params p, int rows_per_tile) {
+  constexpr int PER = HD / 32;
+  const int groups = rows_per_tile / 8;
+  const int tile0 = blockIdx.x / groups * rows_per_tile;
+  const int R = tile0 + blockIdx.x % groups * 8 + threadIdx.x / 32;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  if (R >= p.C * p.G) return;
+  const TileRange tr = tile_range(p, tile0, rows_per_tile, b);
+  if (tr.empty()) return;
+  const int c_first = tr.k_lo / CHUNK;
+  const int c_last = (tr.k_hi - 1) / CHUNK;
+  if (c_last == c_first) return;  // written directly
+  const int H = p.KV * p.G;
+  const size_t N = (size_t)p.B * p.C * H;  // rows per chunk
+  const size_t idx = ((size_t)b * p.C + R / p.G) * H + kvh * p.G + R % p.G;
+  const int col = (threadIdx.x % 32) * PER;
+  const int c0 = first_chunk(p, b);
+  size_t j = (size_t)(c_first - c0) * N + idx;
+  float m = p.m_p[j], l = p.l_p[j], a[PER], ac[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) a[k] = p.acc_p[j * HD + col + k];
+  for (int ch = c_first + 1; ch <= c_last; ++ch) {
+    j = (size_t)(ch - c0) * N + idx;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) ac[k] = p.acc_p[j * HD + col + k];
+    fold(m, l, a, PER, p.m_p[j], p.l_p[j], ac);
+  }
+  const float inv = 1.f / fmaxf(l, 1e-20f);
+#pragma unroll
+  for (int k = 0; k < PER; ++k) p.out[idx * HD + col + k] = __float2bfloat16(a[k] * inv);
+}
+
+template <int HD, int NC, bool Q8>
+int launch(Params p, const void* q, int layer, cudaStream_t stream) {
+  using L = Layout<HD, NC, Q8>;
+  constexpr int BK = L::BK;
+  constexpr int EB = Q8 ? 1 : 2;
+  const int H = p.KV * p.G;
+  const size_t rows = (size_t)p.KV * p.n_pages * p.ps;  // pool rows of one layer
+  p.k += (size_t)layer * rows * HD * EB;
+  p.v += (size_t)layer * rows * HD * EB;
+  if (Q8) {
+    p.ks += (size_t)layer * rows;
+    p.vs += (size_t)layer * rows;
+  }
+  p.use_tma = p.ps % BK == 0;
+  if (p.n_chunks > 1 && (p.acc_p == nullptr || p.m_p == nullptr || p.l_p == nullptr))
+    return (int)cudaErrorInvalidValue;
+
+  // q as [B * C][H][HD]: a box of 64 / G queries x G heads x 64 columns
+  CUtensorMap mq, mk, mv;
+  const cuuint64_t q_dims[3] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)p.B * p.C};
+  const cuuint64_t q_strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2};
+  const cuuint32_t q_box[3] = {64, (cuuint32_t)p.G, (cuuint32_t)(64 / p.G)};
+  int err = encode_map(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q, q_dims, q_strides, q_box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  memset(&mk, 0, sizeof(mk));
+  memset(&mv, 0, sizeof(mv));
+  if (!err && p.use_tma) {  // the layer's pool as rows [KV * n_pages * ps][HD]
+    const cuuint64_t dims[2] = {(cuuint64_t)HD, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)HD * EB};
+    const cuuint32_t box[2] = {(cuuint32_t)(Q8 ? HD : 64), (cuuint32_t)BK};
+    const CUtensorMapDataType type =
+        Q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const CUtensorMapSwizzle swz = Q8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+    err = encode_map(&mk, type, 2, p.k, dims, strides, box, swz);
+    if (!err) err = encode_map(&mv, type, 2, p.v, dims, strides, box, swz);
+  }
+  if (err) return err;
   // set once, outside any CUDA-graph capture that later launches replay
   static bool smem_attr_set = false;
   if (!smem_attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_kernel<HD, G, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t e = cudaFuncSetAttribute(
+        window_kernel<HD, NC, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (e != cudaSuccess) return (int)e;
     smem_attr_set = true;
   }
-  dim3 grid((C * G + BQ - 1) / BQ, KV, B);
-  window_kernel<HD, G, Q8><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v, ks, vs, tables, starts, counts,
-      static_cast<__nv_bfloat16*>(out), C, KV, n_pages, ps, mp, layer, scale, window);
+  const int n_tiles = (p.C * p.G + 64 * NC - 1) / (64 * NC);
+  window_kernel<HD, NC, Q8><<<dim3(n_tiles, p.KV, p.B * p.n_chunks), (NC + 1) * WG_THREADS,
+                              L::BYTES, stream>>>(mq, mk, mv, p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.n_chunks == 1) return (int)e;
+  window_combine_kernel<HD><<<dim3(n_tiles * 8 * NC, p.KV, p.B), 256, 0, stream>>>(p, 64 * NC);
   return (int)cudaGetLastError();
 }
 
-template <int HD, bool Q8>
-int launch_g(int G, const void* q, const void* k, const void* v, const float* ks,
-             const float* vs, const int* tables, const int* starts, const int* counts,
-             void* out, int B, int C, int KV, int n_pages, int ps, int mp, int layer,
-             float scale, int window, cudaStream_t st) {
-#define FI_LAUNCH(GG)                                                                   \
-  return launch<HD, GG, Q8>(q, k, v, ks, vs, tables, starts, counts, out, B, C, KV,    \
-                            n_pages, ps, mp, layer, scale, window, st)
-  switch (G) {
-    case 1: FI_LAUNCH(1);
-    case 2: FI_LAUNCH(2);
-    case 4: FI_LAUNCH(4);
-    case 8: FI_LAUNCH(8);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef FI_LAUNCH
+template <int HD>
+int launch_hd(const Params& p, const void* q, int layer, cudaStream_t st) {
+  const bool q8 = p.ks != nullptr;
+  if (p.C * p.G <= 64)
+    return q8 ? launch<HD, 1, true>(p, q, layer, st) : launch<HD, 1, false>(p, q, layer, st);
+  return q8 ? launch<HD, 2, true>(p, q, layer, st) : launch<HD, 2, false>(p, q, layer, st);
 }
 
 }  // namespace
 
-// bf16 pages when the scales are null, int8 pages otherwise
+// bf16 pages when the scales are null, int8 pages otherwise.  acc / m / l
+// are the split partials' scratch, [n_chunks, B, C, H, HD] and [n_chunks,
+// B, C, H] f32, null when n_chunks is 1; n_chunks is at least the number
+// of CHUNK-key chunks that any live sequence's key range touches (a launch
+// given fewer traps).
 extern "C" int paged_window_attention(const void* q, const void* k_pages, const void* v_pages,
                                       const void* k_scales, const void* v_scales,
                                       const void* page_tables, const void* starts,
-                                      const void* counts, void* out, int B, int C, int KV,
-                                      int G, int HD, int n_pages, int ps, int mp, int layer,
-                                      float scale, int window, void* stream) {
-  if (B <= 0 || C <= 0 || KV <= 0 || n_pages <= 0 || ps <= 0 || mp <= 0 ||
-      (k_scales == nullptr) != (v_scales == nullptr))
+                                      const void* counts, void* out, void* acc, void* m,
+                                      void* l, int B, int C, int KV, int G, int HD,
+                                      int n_pages, int ps, int mp, int layer, float scale,
+                                      int window, int n_chunks, void* stream) {
+  if (B <= 0 || C <= 0 || KV <= 0 || n_pages <= 0 || ps <= 0 || mp <= 0 || n_chunks <= 0 ||
+      (G != 1 && G != 2 && G != 4 && G != 8) || (k_scales == nullptr) != (v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
-  const int* tb = static_cast<const int*>(page_tables);
-  const int* st = static_cast<const int*>(starts);
-  const int* ct = static_cast<const int*>(counts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool q8 = ks != nullptr;
-  if (HD == 128)
-    return q8 ? launch_g<128, true>(G, q, k_pages, v_pages, ks, vs, tb, st, ct, out, B, C, KV,
-                                    n_pages, ps, mp, layer, scale, window, s)
-              : launch_g<128, false>(G, q, k_pages, v_pages, ks, vs, tb, st, ct, out, B, C,
-                                     KV, n_pages, ps, mp, layer, scale, window, s);
-  if (HD == 64)
-    return q8 ? launch_g<64, true>(G, q, k_pages, v_pages, ks, vs, tb, st, ct, out, B, C, KV,
-                                   n_pages, ps, mp, layer, scale, window, s)
-              : launch_g<64, false>(G, q, k_pages, v_pages, ks, vs, tb, st, ct, out, B, C, KV,
-                                    n_pages, ps, mp, layer, scale, window, s);
+  Params p;
+  p.k = static_cast<const unsigned char*>(k_pages);
+  p.v = static_cast<const unsigned char*>(v_pages);
+  p.ks = static_cast<const float*>(k_scales);
+  p.vs = static_cast<const float*>(v_scales);
+  p.tables = static_cast<const int*>(page_tables);
+  p.starts = static_cast<const int*>(starts);
+  p.counts = static_cast<const int*>(counts);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.acc_p = static_cast<float*>(acc);
+  p.m_p = static_cast<float*>(m);
+  p.l_p = static_cast<float*>(l);
+  p.B = B;
+  p.C = C;
+  p.KV = KV;
+  p.G = G;
+  p.n_pages = n_pages;
+  p.ps = ps;
+  p.mp = mp;
+  p.window = window;
+  p.n_chunks = n_chunks;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (HD == 128) return launch_hd<128>(p, q, layer, st);
+  if (HD == 64) return launch_hd<64>(p, q, layer, st);
   return (int)cudaErrorInvalidValue;
 }

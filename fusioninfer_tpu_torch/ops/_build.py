@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 under ``build/kernels/`` at the repository root.  Every source gets its
 own ``nvcc`` process, all started together, so the build takes as long
-as the slowest file.  A library's name carries a hash of its source, so
-an edited kernel is rebuilt and an unchanged one is reused.
+as the slowest file.  A library's name carries a hash of its source and
+of every local header it ``#include``s (recursively), so an edited kernel
+or header is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import: the first wrapper that launches a kernel
 calls :func:`library`, which builds every kernel once per process.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,8 +57,10 @@ SIGNATURES = {
     },
     "paged_window_attention.cu": {
         # q, k_pages, v_pages, k_scales, v_scales, tables, starts, counts,
-        # out, B, C, KV, G, Hd, n_pages, ps, mp, layer, scale, window, stream
-        "paged_window_attention": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
+        # out, acc, m, l (split partials; NULL when n_chunks is 1), B, C,
+        # KV, G, Hd, n_pages, ps, mp, layer, scale, window, n_chunks (the
+        # partials' chunk slots per sequence), stream
+        "paged_window_attention": [_P] * 12 + [_I] * 9 + [_F, _I, _I, _P],
     },
 }
 
@@ -73,10 +77,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(src: Path) -> list[Path]:
+    """``src`` and every header it ``#include "..."``s, recursively, each
+    once, in the order first met; an include resolves against the
+    directory of the file that names it, and one that does not resolve
+    raises ``FileNotFoundError``."""
+    seen: list[Path] = []
+    todo = [src.resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for name in _LOCAL_INCLUDE.findall(f.read_text()):
+            inc = (f.parent / name).resolve()
+            if not inc.is_file():
+                raise FileNotFoundError(f"{f.name} includes {name!r}, not found")
+            todo.append(inc)
+    return seen
+
+
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in local_includes(src):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, ctypes.CDLL]:

@@ -5,20 +5,23 @@ Pallas TPU kernel).  Same contract: q ``[B, S, H, Hd]``, k/v
 ``[B, S, KV, Hd]`` with GQA group ``H // KV``, causal by global position,
 optional sliding window, f32 softmax statistics → ``[B, S, H·Hd]``.
 
-Kernel (``csrc/flash_attention.cu``): one block per (64-row q tile, q
-head, batch row), four warps of 16 rows each.  K/V tiles of 64 keys
-stream through a two-stage ``cp.async`` ring in shared memory; QKᵀ and
-PV run on the tensor cores (``mma.sync`` m16n8k16, bf16 → f32, fed by
-``ldmatrix``), and the scores, softmax statistics and output accumulator
-stay in registers.  GQA reads KV head ``h // G`` in place (no head
-broadcast in memory); tiles wholly above the causal diagonal or below
-the window are never loaded.
+Kernel (``csrc/flash_attention.cu``, on the shared Hopper machinery of
+``csrc/hopper_attention.cuh``): a persistent grid of one block per SM
+walks work items of one 128-row q tile of one q head and batch row,
+heaviest first, with the G heads of a KV head side by side so their K/V
+reads hit L2.  A producer warpgroup (registers lowered by ``setmaxnreg``)
+issues every load as a TMA copy from 3-D tensor maps over q/k/v,
+zero-filled past S, and streams 128-key K/V tiles through a three-stage
+mbarrier ring; two consumer warpgroups of 64 rows each take turns on the
+tensor cores, running QKᵀ and PV as ``wgmma`` (P from registers) with
+the online softmax in f32 registers, and mask only the tiles that cross
+the diagonal, the window's edge or S.  GQA reads KV head ``h // G`` in
+place (no head broadcast in memory).
 
 Bound on an H100: prefill at the served shapes is bound by operations
 (≈4·S²·H·Hd/2 FLOP against ≈ (2·H + 2·KV)·S·Hd·2 bytes), so the design
-keeps both products on the tensor cores and the [S, S] scores out of
-device memory.  It does not yet use ``wgmma``/TMA or warp
-specialisation, which the card needs for its full rate (see PERF.md).
+keeps both products on the tensor cores through ``wgmma``, the only path
+to their full rate, and the [S, S] scores out of device memory.
 """
 
 from __future__ import annotations

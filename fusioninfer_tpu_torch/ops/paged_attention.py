@@ -37,10 +37,22 @@ shared memory; the split variant writes them as f32 partials and a
 second small kernel runs the fixed-order combine.  Blocks per token
 (not per 8-token tile, as on the TPU) because a decode step's tokens
 each belong to a different row with different pages, and the GPU needs
-many blocks in flight to reach its memory rate.  Suffix prefill and
-verify share ``csrc/paged_window_attention.cu``: tensor-core tiles of
-(query, group head) rows against 64-key tiles read through the page
-table, under the causal wavefront.
+many blocks in flight to reach its memory rate.
+
+Suffix prefill and verify share ``csrc/paged_window_attention.cu``,
+built on Hopper's own machinery (``csrc/hopper_attention.cuh``): tiles
+of 64 (query, group head) rows per consumer warpgroup run Q·Kᵀ and P·V
+as ``wgmma`` against K/V tiles that a producer warp streams through an
+mbarrier ring — by TMA, one copy per page segment, where a tile lies
+whole in one page, else gathered row by row with ``cp.async`` — with
+int8 pages widened to bf16 by the producer warpgroup.  Each query
+window's key range is cut into fixed chunks of ``WINDOW_CHUNK``
+positions, each chunk its own block; a range spanning several chunks is
+folded left to right from f32 partials (scratch for the chunks that the
+live windows touch, and no more), with the split walk's
+arithmetic (:func:`combine_kvsplit_partials`), so the result depends
+only on key positions (:func:`reference_window_partials` is the plain
+version of those partials).
 
 Bound on an H100: decode attention reads every live K/V byte once and
 does ~4·G·Hd FLOP per key and head, far below the 295 FLOP/byte ridge,
@@ -73,6 +85,11 @@ KV_SPLIT_CHUNKS = 8
 # keep the single walk; the choice is static engine config, never batch
 # content, so a row's bits never depend on its neighbours
 KV_SPLIT_MIN_CTX_TOKENS = 4096
+
+# fixed key-position chunk of the query-window kernel's split (the
+# ``CHUNK`` of ``csrc/paged_window_attention.cu``): a window whose keys
+# span several chunks is folded from per-chunk partials
+WINDOW_CHUNK = 1024
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
@@ -252,6 +269,49 @@ def reference_paged_verify_attention(q, k_pages, v_pages, page_tables,
         probs = probs * vs.transpose(0, 1)[:, :, None, None, :]
     out = torch.einsum("bkgct,kbtd->bckgd", probs, v_ctx)
     return out.reshape(B, C, H * Hd).to(q.dtype)
+
+
+def reference_window_partials(q, k_pages, v_pages, page_tables, starts, counts,
+                              k_scales=None, v_scales=None, window=None,
+                              chunk: int = WINDOW_CHUNK):
+    """Plain version of the query-window kernel's split partials: for each
+    of the ``ceil(mp·ps / chunk)`` chunks of ``chunk`` key positions, the
+    raw f32 ``(acc [n, B·C, KV, G, Hd], m [n, B·C, KV, G], l [n, B·C, KV,
+    G])`` of every query row over the chunk's visible keys (natural-log
+    units), ready for :func:`combine_kvsplit_partials`.  A chunk a row
+    sees nothing of, and every chunk of a row at or past ``counts[b]``, is
+    ``(0, -inf, 0)``.  The V scale weights ``acc``, not ``l``."""
+    B, C, H, Hd = q.shape
+    KV, _, ps, _ = k_pages.shape
+    G = H // KV
+    mp = page_tables.shape[1]
+    n = -(-(mp * ps) // chunk)
+    pad = n * chunk - mp * ps
+    k_ctx, ks = _context(k_pages, k_scales, page_tables)
+    v_ctx, vs = _context(v_pages, v_scales, page_tables)
+    qg = q.reshape(B, C, KV, G, Hd).float()
+    s = torch.einsum("bckgd,kbtd->bckgt", qg, k_ctx) / (Hd ** 0.5)
+    if ks is not None:
+        s = s * ks.transpose(0, 1)[:, None, :, None, :]
+    i = torch.arange(C, device=q.device)
+    live = i[None, :] < counts[:, None]  # [B, C]
+    pos = starts[:, None] + i[None, :]
+    ctx = torch.arange(mp * ps, device=q.device)
+    mask = attend(pos[:, :, None], ctx, window) & live[:, :, None]  # [B, C, S]
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(B, C, KV, G, n, chunk)
+    mask = torch.nn.functional.pad(mask, (0, pad)).reshape(B, C, 1, 1, n, chunk)
+    s = torch.where(mask, s, torch.full_like(s, float("-inf")))
+    m = s.amax(dim=-1)  # [B, C, KV, G, n]
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+    l = p.sum(dim=-1)
+    if vs is not None:
+        vs = torch.nn.functional.pad(vs, (0, pad)).transpose(0, 1)
+        p = p * vs.reshape(B, 1, KV, 1, n, chunk)
+    v_ctx = torch.nn.functional.pad(v_ctx, (0, 0, 0, pad)).reshape(KV, B, n, chunk, Hd)
+    acc = torch.einsum("bckgnt,kbntd->bckgnd", p, v_ctx)
+    return (acc.permute(4, 0, 1, 2, 3, 5).reshape(n, B * C, KV, G, Hd),
+            m.permute(4, 0, 1, 2, 3).reshape(n, B * C, KV, G),
+            l.permute(4, 0, 1, 2, 3).reshape(n, B * C, KV, G))
 
 
 def reference_paged_prefill_attention(q, k_pages, v_pages, page_row, start,
@@ -469,10 +529,41 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
     return out
 
 
+def _window_chunks(starts, counts, C: int, keys: int, window) -> int:
+    """Scratch slots per sequence for the query-window kernel's split: the
+    most ``WINDOW_CHUNK`` chunks that any live sequence's keys touch, from
+    the chunk of its first visible key (``starts − window + 1``, or 0) to
+    that of its last (``starts + min(counts, C) − 1``, below ``keys``).
+    ``starts``/``counts`` are ints or tensors; CUDA tensors cost one copy
+    to the host, except under CUDA-graph capture, where nothing can be
+    read and the bound from the shapes alone (``keys``, and ``window +
+    C`` under a window) is taken instead.  The kernel's result does not
+    depend on the number: only its scratch does."""
+    chunk = WINDOW_CHUNK
+    bound = -(-keys // chunk)
+    if window:
+        bound = min(bound, -(-(window + C) // chunk) + 1)
+    if bound == 1 or (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        return bound
+    s, c = (torch.as_tensor(x).reshape(-1) for x in (starts, counts))
+    dev = s.device if s.is_cuda else c.device
+    s, c = s.to(dev).long(), c.to(dev).long().clamp(0, C)
+    lo = (s - window + 1).clamp(min=0) if window else torch.zeros_like(s)
+    hi = (s + c).clamp(max=keys)
+    n = torch.where((c > 0) & (hi > lo), (hi - 1) // chunk - lo // chunk + 1, 1)
+    return int(n.max())
+
+
 def _window_kernel(name, q, kp, vp, ks, vs, li, page_tables, starts, counts,
-                   window):
+                   window, given=None):
     """Launch the query-window kernel on q ``[B, C, H, Hd]`` → ``[B, C,
-    H·Hd]`` (shared by suffix prefill, B = 1, and verify)."""
+    H·Hd]`` (shared by suffix prefill, B = 1, and verify).  Where a live
+    window's keys span several ``WINDOW_CHUNK`` chunks, the kernel's
+    split partials get f32 scratch here: ``n × B·C·H·(Hd + 2)`` floats
+    for ``n`` = :func:`_window_chunks` of ``given``, the caller's starts
+    and counts as it passed them (ints stay on the host), at most
+    ``ceil(mp·ps / WINDOW_CHUNK)``, and under a window at most
+    ``ceil((window + C) / WINDOW_CHUNK) + 1``."""
     H, Hd, KV, n_pages, ps = _check_pages(q, kp, vp, ks, vs, li)
     B, C = q.shape[:2]
     mp = page_tables.shape[1]
@@ -483,9 +574,17 @@ def _window_kernel(name, q, kp, vp, ks, vs, li, page_tables, starts, counts,
     out = torch.empty((B, C, H * Hd), dtype=q.dtype, device=q.device)
     if B == 0 or C == 0:
         return out
-    err = fn(*_pointers(q, kp, vp, ks, vs, page_tables, starts, counts, out),
+    n_chunks = _window_chunks(*(given or (starts, counts)), C, mp * ps, window)
+    acc = m = l = None
+    if n_chunks > 1:
+        f32 = {"dtype": torch.float32, "device": q.device}
+        acc = torch.empty((n_chunks, B, C, H, Hd), **f32)
+        m = torch.empty((n_chunks, B, C, H), **f32)
+        l = torch.empty((n_chunks, B, C, H), **f32)
+    err = fn(*_pointers(q, kp, vp, ks, vs, page_tables, starts, counts, out,
+                        acc, m, l),
              B, C, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
-             window or 0, _stream(q))
+             window or 0, n_chunks, _stream(q))
     _build.check(err, name)
     dispatch.count_launch(_variant(name, ks))
     return out
@@ -499,9 +598,10 @@ def paged_prefill_attention(q, k_pages, v_pages, page_row, start, true_len,
     ``i`` of q ``[C, H, Hd]`` sits at ``start + i`` and attends causally
     over the pages of ``page_row [mp]``; rows at or past ``true_len`` are
     padding and come out as zeros.  ``start`` and ``true_len`` are ints
-    or one-element tensors.  The query-window CUDA kernel (a batch of
-    one) for CUDA tensors, :func:`reference_paged_prefill_attention` for
-    CPU tensors."""
+    or one-element tensors (ints spare the kernel's wrapper a copy to the
+    host when it sizes its split scratch).  The query-window CUDA kernel
+    (a batch of one) for CUDA tensors,
+    :func:`reference_paged_prefill_attention` for CPU tensors."""
     dev = q.device
     starts = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(1)
     counts = torch.as_tensor(true_len, dtype=torch.int32, device=dev).reshape(1)
@@ -511,7 +611,8 @@ def paged_prefill_attention(q, k_pages, v_pages, page_row, start, true_len,
                                                  counts, ks, vs, window=window)
     kp, vp, ks, vs, li = _layer_pages(k_pages, v_pages, k_scales, v_scales, layer)
     return _window_kernel("paged_prefill_attention", q[None], kp, vp, ks, vs,
-                          li, page_row[None], starts, counts, window)[0]
+                          li, page_row[None], starts, counts, window,
+                          (start, true_len))[0]
 
 
 def paged_verify_attention(q, k_pages, v_pages, page_tables, starts, counts,
