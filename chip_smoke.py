@@ -15,8 +15,11 @@ Phases, in order; any failure exits non-zero before the result line:
    function) times by CUDA events, and the least time the card could
    take (bytes or operations).  The three standalone primitives (paged
    decode, suffix prefill, verify) are first driven once each through
-   their ``ops`` entry points with the launch counts reset.  Untimed
-   cases cover what the served shapes do not reach, among them the
+   their ``ops`` entry points with the launch counts reset.  The single
+   walk and paged decode are also timed at the 2048 serve leg's shape
+   (contexts up to 2048, 16-page tables).  Untimed cases cover what the
+   served shapes do not reach, among them the single walk's and paged
+   decode's cluster split at each cluster size (1, 2, 4, 8), the
    query-window kernel's key split (verify windows over one, two and
    three 1024-key chunks in one batch, and a windowed suffix prefill on
    two consumer warpgroups across a chunk boundary, held also against
@@ -29,7 +32,8 @@ Phases, in order; any failure exits non-zero before the result line:
    full-sequence forward that runs none of the kernels, and the
    flash-prefill and split-KV decode kernels must have launched;
 5. the same weights at ``--max-model-len 2048``: decode takes the single
-   page walk, whose kernel must have launched;
+   page walk, whose kernel must have launched; then the decode-step
+   profile;
 6. the same weights with int8 KV pages (``--kv-cache-dtype int8``), at
    ``--max-model-len 4096`` (the int8 split walk must launch; the plain
    forward reads K/V through ``kv_quantize`` for the decoded rows, as
@@ -78,6 +82,8 @@ N_REQUESTS_PROMPTS = (64, 300, 800, 1500)  # byte-tokens per prompt
 MAX_TOKENS = 32
 # the served batch's decode contexts (tokens incl. the new one), ps 128
 DECODE_CTX = (100, 600, 1100, 1600, 2100, 2600, 3300, 4000)
+# the same at the 2048 serve leg's shape (max-model-len 2048: 16 pages)
+DECODE_CTX_2048 = (64, 300, 550, 800, 1050, 1300, 1650, 2048)
 KV_HEADS, GROUP, HEAD_DIM, PAGE = 8, 4, 128, 128
 
 
@@ -351,6 +357,104 @@ def check_paged(gen, split: bool, int8: bool = False) -> dict:
         res["max_row_err"] = max(res["max_row_err"], result.get("max_row_err", 0.0))
         result = {**res, "mixed_case": result or None}
     return result
+
+
+def check_walk_2048(gen, int8: bool) -> dict:
+    """The single walk and paged decode at the 2048 serve leg's shape: 8
+    decode rows with contexts up to 2048 over 16-page tables (a
+    two-layer pool read at layer 1), each against its plain version,
+    timed.  Returns ``{"single walk": ..., "paged decode": ...}``."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    layer, mp = 1, 16
+    rows = [(c - 1, 1) for c in DECODE_CTX_2048]
+    kp, vp, ks, vs, tables = paged_pool(gen, rows, int8, mp=mp)
+    q = torch.randn((len(rows), KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    starts = torch.tensor([s for s, _ in rows], dtype=torch.int32, device="cuda")
+    ones = torch.ones(len(rows), dtype=torch.int32, device="cuda")
+    begins = torch.arange(len(rows), dtype=torch.int32, device="cuda")
+    lengths = starts + 1
+    sc = (ks, vs) if int8 else ()
+    lsc = (ks[layer], vs[layer]) if int8 else ()
+    shape = "8 decode rows ctx 64..2048, mp 16, ps 128" + (", int8 pages" if int8 else "")
+    sdpa = (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[layer], vp[layer], tables,
+                                                           rows))
+    return {
+        "single walk": measure(
+            "paged single walk" + (" int8" if int8 else ""), shape,
+            lambda: pa.ragged_paged_attention(q, kp, vp, tables, starts, begins, ones, *sc,
+                                              layer=layer),
+            lambda: pa.reference_ragged_paged_attention(q, kp[layer], vp[layer], tables,
+                                                        starts, begins, ones, *lsc),
+            PAGED_ROW_TOL, rows, int8, sdpa),
+        "paged decode": measure(
+            "paged decode" + (" int8" if int8 else ""), shape,
+            lambda: pa.paged_decode_attention(q, kp, vp, tables, lengths, *sc, layer=layer),
+            lambda: pa.reference_paged_attention(q, kp[layer], vp[layer], tables, lengths,
+                                                 *lsc),
+            PAGED_ROW_TOL, rows, int8, sdpa)}
+
+
+def check_clusters(gen) -> int:
+    """Untimed checks of the single walk's and paged decode's cluster
+    split, one batch per cluster size: a batch of T one-token rows, the
+    largest T up to 40 for which the wrapper's rule
+    (``pick_cluster_size``) gives that size on this card; contexts from
+    5 keys (fewer pages than ranks: ranks with no keys) to 1500, and an
+    inactive slot in decode; ps 16
+    for CL 1 and 4, ps 128 for CL 2 and 8; bf16 pages without a window,
+    int8 pages under a 300-key window that starts mid-page, past the
+    first pages.  Each against its plain version.  Returns the number of
+    cases."""
+    import torch
+
+    from fusioninfer_tpu_torch.models.quantization import kv_quantize
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctx = (5, 37, 200, 700, 1500, 130, 1000, 64)
+    n = 0
+    for cl in pa.CLUSTER_SIZES:
+        ps = 16 if cl in (1, 4) else 128
+        mp = -(-1500 // ps)
+        T = max(t for t in range(1, 41) if pa.pick_cluster_size(t, KV_HEADS, mp, sms) == cl)
+        starts = torch.tensor([ctx[i % len(ctx)] - 1 for i in range(T)], dtype=torch.int32)
+        n_pages = T * mp + 1
+        tables = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(cl))
+        tables = tables.reshape(T, mp).to(torch.int32).cuda()
+        starts = starts.cuda()
+        ones = torch.ones(T, dtype=torch.int32, device="cuda")
+        begins = torch.arange(T, dtype=torch.int32, device="cuda")
+        lengths = (starts + 1) * (begins != T // 2)  # one inactive slot
+        q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        shape = (2, KV_HEADS, n_pages, ps, HEAD_DIM)
+        kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        for int8, window in ((False, None), (True, 300)):
+            if int8:
+                (k, k_s), (v, v_s) = kv_quantize(kp), kv_quantize(vp)
+                sc = (k_s[..., None, :].contiguous(), v_s[..., None, :].contiguous())
+            else:
+                k, v, sc = kp, vp, ()
+            lsc = tuple(x[1] for x in sc)
+            tag = f"CL {cl} (T{T}, ps {ps}, window {window}{', int8' if int8 else ''})"
+            check_close(pa.ragged_paged_attention(q, k, v, tables, starts, begins, ones, *sc,
+                                                  window=window, layer=1),
+                        pa.reference_ragged_paged_attention(q, k[1], v[1], tables, starts,
+                                                            begins, ones, *lsc,
+                                                            window=window),
+                        f"single walk {tag}", PAGED_ROW_TOL, HEAD_DIM)
+            check_close(pa.paged_decode_attention(q, k, v, tables, lengths, *sc,
+                                                  window=window, layer=1),
+                        pa.reference_paged_attention(q, k[1], v[1], tables, lengths, *lsc,
+                                                     window=window),
+                        f"paged decode {tag}", PAGED_ROW_TOL, HEAD_DIM)
+            n += 2
+    return n
 
 
 def primitive_cases(gen) -> list[dict]:
@@ -896,6 +1000,11 @@ def main() -> int:
     walks = {(split, int8): check_paged(gen, split, int8)
              for int8 in (False, True) for split in (False, True)}
     prims = {case["name"]: check_primitive(case) for case in cases}
+    walks_2048 = {("int8" if int8 else "bf16"): check_walk_2048(gen, int8)
+                  for int8 in (False, True)}
+    log(f"  {check_clusters(gen)} cluster cases (the single walk and paged decode at CL 1, "
+        "2, 4 and 8; short rows with ranks that hold no keys, an inactive slot, ps 16 and "
+        "128, bf16 and int8 pages under a mid-page window) within the bound")
     log(f"  {check_variants(gen)} further cases (windows, ragged S, Hd 64, G 1/2/8, "
         "ps 16, inactive and padding rows, int8) within the bound")
     log(f"  {check_window_split(gen)} key-split cases (verify over 1, 2 and 3 chunks of "
@@ -929,6 +1038,8 @@ def main() -> int:
         raise AssertionError(f"expected the single walk at 2048, got kv_splits {engine.kv_splits}")
     prompts5 = prompts[:2] + [prompts[2][:600], prompts[3][:1000]]
     serve5 = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention"))
+    prof5 = profile_decode(engine)
+    log_profile(prof5, card)
     del engine
     torch.cuda.empty_cache()
 
@@ -977,8 +1088,9 @@ def main() -> int:
                    "walks": {f"{'split' if sp else 'single'}{'_int8' if q8 else ''}": r
                              for (sp, q8), r in walks.items()},
                    "primitives": prims, "primitive_launches": launches_b,
+                   "walks_2048": walks_2048,
                    "serve_4096": {**serve4, "decode_profile": prof4},
-                   "serve_2048": serve5,
+                   "serve_2048": {**serve5, "decode_profile": prof5},
                    "serve_int8_4096": {**serve6, "decode_profile": prof6},
                    "serve_int8_2048": serve6s,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)

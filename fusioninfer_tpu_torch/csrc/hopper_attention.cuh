@@ -1,8 +1,10 @@
 // Shared machinery of the Hopper (sm_90a) attention kernels:
-// csrc/flash_attention.cu and csrc/paged_window_attention.cu.
+// csrc/flash_attention.cu, csrc/paged_window_attention.cu and (its
+// mbarriers, bulk copies and cluster wrappers) csrc/paged_attention.cu.
 //
 // PTX wrappers (mbarrier, TMA and bulk copies, cp.async into an mbarrier,
-// named barriers, wgmma and its fences, setmaxnreg), the wgmma shared-memory
+// cluster rank, barrier and distributed shared memory reads, named
+// barriers, wgmma and its fences, setmaxnreg), the wgmma shared-memory
 // descriptors of the 128-byte-swizzled layout, the host-side tensor-map
 // encoder, the fold of split partials, and the consumer side that both
 // kernels share.  A consumer warpgroup owns 64 query rows and walks a ring
@@ -84,6 +86,36 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
     if (n == (1u << 24)) __trap();
+}
+
+// -- thread-block clusters ------------------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: writes to shared memory before
+// it are visible to the whole cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of `p` (in this block's shared memory) in block `rank`'s
+// shared memory, for ld.shared::cluster
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // -- copies -----------------------------------------------------------------------

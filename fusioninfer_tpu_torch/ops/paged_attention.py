@@ -28,16 +28,26 @@ K scale multiplies the scores after the dot and the V scale the
 probabilities before P·V, in the kernels and in the plain versions, so
 no page is ever dequantized into memory.
 
-Kernels (``csrc/paged_attention.cu``): the walks and paged decode run
-one block of eight warps per (token or sequence, KV head[, virtual
-chunk]); the block carries the ``G = H // KV`` query heads, and walks
-only the live keys of its row's pages (32 keys per warp step, one key
-per lane) with an online softmax in f32.  The warps' states merge in
-shared memory; the split variant writes them as f32 partials and a
-second small kernel runs the fixed-order combine.  Blocks per token
-(not per 8-token tile, as on the TPU) because a decode step's tokens
-each belong to a different row with different pages, and the GPU needs
-many blocks in flight to reach its memory rate.
+Kernels (``csrc/paged_attention.cu``): the single walk and paged decode
+share one kernel that runs a thread-block cluster of ``CL`` blocks per
+(token or sequence, KV head), ``CL`` from :func:`pick_cluster_size`
+(shapes only, so a launch reads nothing back from the card and a CUDA
+graph can capture it).  Rank ``r`` of a cluster walks the ``r``-th share
+of the pages the query sees (:func:`cluster_key_ranges`), streamed into
+shared memory by bulk copies, one per page segment, through an mbarrier
+ring; four warps score each key against the ``G = H // KV`` query heads
+and accumulate P·V in f32; the ranks' f32 ``(acc, m, l)`` are folded left
+to right from rank 0 through distributed shared memory, each rank
+folding a slice of the outputs (:func:`reference_cluster_partials` is
+the plain version of those partials).  A row's bits depend on ``CL``,
+which depends on the batch's token count, never on the other rows'
+contents.  The split walk runs one
+block of eight warps per (token, KV head, virtual chunk), 32 keys per
+warp step, one key per lane, writes f32 partials, and a second small
+kernel runs the fixed-order combine.  Blocks per token (not per 8-token
+tile, as on the TPU) because a decode step's tokens each belong to a
+different row with different pages, and the GPU needs many blocks in
+flight to reach its memory rate.
 
 Suffix prefill and verify share ``csrc/paged_window_attention.cu``,
 built on Hopper's own machinery (``csrc/hopper_attention.cuh``): tiles
@@ -94,6 +104,9 @@ WINDOW_CHUNK = 1024
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 
+# portable thread-block cluster sizes of the single walk and paged decode
+CLUSTER_SIZES = (1, 2, 4, 8)
+
 
 def pick_kv_splits(max_pages_per_seq: int, page_size: int) -> int:
     """0 (single walk) below the long-context floor, else the full
@@ -101,6 +114,73 @@ def pick_kv_splits(max_pages_per_seq: int, page_size: int) -> int:
     if max_pages_per_seq * page_size < KV_SPLIT_MIN_CTX_TOKENS:
         return 0
     return KV_SPLIT_CHUNKS
+
+
+def pick_cluster_size(n_items: int, kv_heads: int, max_pages: int,
+                      sm_count: int) -> int:
+    """Blocks per cluster of the single walk and paged decode: the
+    smallest of ``CLUSTER_SIZES`` that gives at least two blocks per SM
+    (``n_items · kv_heads · CL >= 2 · sm_count``), capped at 8 and at
+    ``max_pages`` (a share is at least a page).  Shapes only: the choice
+    never reads a tensor, so it costs no copy from the card."""
+    cap = max(c for c in CLUSTER_SIZES if c <= max(max_pages, 1))
+    for cl in CLUSTER_SIZES:
+        if cl == cap or n_items * kv_heads * cl >= 2 * sm_count:
+            return cl
+    raise AssertionError("unreachable: cap is one of CLUSTER_SIZES")
+
+
+def cluster_key_ranges(k_lo: torch.Tensor, k_hi: torch.Tensor,
+                       page_size: int, cluster: int):
+    """Each rank's keys ``(lo, hi)``, each ``[cluster, *k_lo.shape]``, for
+    queries that see keys ``[k_lo, k_hi)``: of the ``n`` pages holding
+    them, rank ``r`` takes pages ``[p0 + r·s, p0 + (r + 1)·s)`` with ``p0``
+    the first such page and ``s = ceil(n / cluster)``, cut to the visible
+    keys.  A rank past the last page gets ``lo == hi``."""
+    ps = page_size
+    p_lo = k_lo // ps
+    p_hi = torch.where(k_hi > k_lo, (k_hi + ps - 1) // ps, p_lo)
+    share = (p_hi - p_lo + cluster - 1) // cluster
+    r = torch.arange(cluster, device=k_lo.device).reshape(
+        (cluster,) + (1,) * k_lo.dim())
+    pa = p_lo + r * share
+    pb = torch.minimum(pa + share, p_hi)
+    lo = torch.maximum(k_lo, pa * ps)
+    return lo, torch.maximum(torch.minimum(k_hi, pb * ps), lo)
+
+
+def reference_cluster_partials(q, k_pages, v_pages, page_tables, row_starts,
+                               q_begins, q_lens, k_scales=None, v_scales=None,
+                               window=None, cluster: int = 1):
+    """Plain version of the cluster walk's per-rank f32 partials: for each
+    rank, the raw ``(acc [CL, T, KV, G, Hd], m [CL, T, KV, G], l [CL, T,
+    KV, G])`` over exactly the keys :func:`cluster_key_ranges` gives it
+    (pages ``[KV, n_pages, ps, Hd]``); a rank with no keys, and every rank
+    of a token in no row, is ``(0, -inf, 0)``.  The V scale weights
+    ``acc``, not ``l``.  :func:`combine_kvsplit_partials` folds them in
+    rank order into the walk's output."""
+    T = q.shape[0]
+    ps = k_pages.shape[2]
+    mp = page_tables.shape[1]
+    s, mask, v_ctx, vs, live = _gathered(q, k_pages, v_pages, page_tables,
+                                         row_starts, q_begins, q_lens,
+                                         k_scales, v_scales, window)
+    row_of, off, _ = ragged_token_rows(q_begins, q_lens, T)
+    pos = (row_starts[row_of] + off).long()
+    k_hi = torch.where(live, torch.clamp(pos + 1, max=mp * ps), 0)
+    k_lo = torch.clamp(pos - window + 1, min=0) if window else torch.zeros_like(pos)
+    lo, hi = cluster_key_ranges(torch.where(live, k_lo, 0), k_hi, ps, cluster)
+    key = torch.arange(mp * ps, device=q.device)
+    ranks = (key >= lo[..., None]) & (key < hi[..., None]) & mask[0, :, 0]  # [CL, T, S]
+    s = torch.where(ranks[:, None, :, None, :], s[None], float("-inf"))  # [CL, KV, T, G, S]
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+    l = p.sum(dim=-1)
+    if vs is not None:
+        p = p * vs[None]
+    acc = torch.einsum("cktgs,ktsd->cktgd", p, v_ctx)
+    return (acc.permute(0, 2, 1, 3, 4).contiguous(), m.permute(0, 2, 1, 3).contiguous(),
+            l.permute(0, 2, 1, 3).contiguous())
 
 
 def ragged_token_rows(q_begins: torch.Tensor, q_lens: torch.Tensor,
@@ -419,6 +499,11 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, from its cached properties (no sync)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _ragged_operands(q, k_pages, v_pages, descriptors, k_scales, v_scales,
                      layer):
     H, Hd, KV, n_pages, ps = _check_pages(q, k_pages, v_pages, k_scales,
@@ -427,6 +512,15 @@ def _ragged_operands(q, k_pages, v_pages, descriptors, k_scales, v_scales,
     _check_int32(tables.shape[0], page_tables=tables, row_starts=row_starts,
                  q_begins=q_begins, q_lens=q_lens)
     return q.shape[0], H, Hd, KV, n_pages, ps, tables.shape[0], tables.shape[1]
+
+
+def _cluster_walk(q, T: int, KV: int, ps: int, mp: int, quantized: bool) -> int:
+    """The single walk's and paged decode's cluster size for ``T`` queries;
+    raises for int8 pages whose size is not a multiple of 4 (the kernel
+    copies their scales in 16-byte runs)."""
+    if quantized and ps % 4:
+        raise ValueError(f"int8 pages need a page size that is a multiple of 4, got {ps}")
+    return pick_cluster_size(T, KV, mp, _sm_count(q.device))
 
 
 def _variant(name: str, k_scales) -> str:
@@ -454,9 +548,10 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_starts,
     out = torch.empty((T, H * Hd), dtype=q.dtype, device=q.device)
     if T == 0:
         return out
+    cluster = _cluster_walk(q, T, KV, ps, mp, ks is not None)
     err = fn(*_pointers(q, kp, vp, ks, vs, *descriptors, out),
              T, R, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
-             window or 0, _stream(q))
+             window or 0, cluster, _stream(q))
     _build.check(err, "ragged_paged_attention")
     dispatch.count_launch(_variant("ragged_paged_attention", ks))
     return out
@@ -521,9 +616,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
     out = torch.empty((B, H * Hd), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    cluster = _cluster_walk(q, B, KV, ps, mp, ks is not None)
     err = fn(*_pointers(q, kp, vp, ks, vs, page_tables, lengths, out),
              B, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5, window or 0,
-             _stream(q))
+             cluster, _stream(q))
     _build.check(err, "paged_decode_attention")
     dispatch.count_launch(_variant("paged_decode_attention", ks))
     return out

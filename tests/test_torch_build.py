@@ -56,6 +56,14 @@ def test_window_and_flash_kernels_share_the_hopper_header():
         assert names == [source, "hopper_attention.cuh"]
 
 
+def test_page_walks_include_the_hopper_header():
+    """The single walk and paged decode take their mbarriers, bulk copies
+    and cluster wrappers from the shared header, so editing it rebuilds
+    the page walks too."""
+    names = [p.name for p in _build.local_includes(_build.CSRC / "paged_attention.cu")]
+    assert names == ["paged_attention.cu", "hopper_attention.cuh"]
+
+
 def test_nested_includes_are_hashed(tmp_path):
     """A header included by a header counts as well, each file once."""
     (tmp_path / "inner.cuh").write_text("#pragma once\nconstexpr int X = 1;\n")
