@@ -17,9 +17,14 @@ Phases, in order; any failure exits non-zero before the result line:
    decode, suffix prefill, verify) are first driven once each through
    their ``ops`` entry points with the launch counts reset.  The single
    walk and paged decode are also timed at the 2048 serve leg's shape
-   (contexts up to 2048, 16-page tables).  Untimed cases cover what the
-   served shapes do not reach, among them the single walk's and paged
-   decode's cluster split at each cluster size (1, 2, 4, 8), the
+   (contexts up to 2048, 16-page tables), the split walk at the 4096
+   leg's decode-profile shape (contexts 101…1501, 32-page tables).
+   Untimed cases cover what the served shapes do not reach, among them
+   the single walk's and paged decode's cluster split at each cluster
+   size (1, 2, 4, 8), the split walk's fixed chunks (tables of 5 and 13
+   pages, windows from mid-chunk, G 1-8, Hd 64, int8, inert rows and
+   padding tokens) and its batch independence (each row's output
+   bit-identical alone, in T8 and in T72), the
    query-window kernel's key split (verify windows over one, two and
    three 1024-key chunks in one batch, and a windowed suffix prefill on
    two consumer warpgroups across a chunk boundary, held also against
@@ -30,14 +35,17 @@ Phases, in order; any failure exits non-zero before the result line:
    four requests, two of them SSE; every request must return its full
    length, the served tokens must be the greedy choice of a plain
    full-sequence forward that runs none of the kernels, and the
-   flash-prefill and split-KV decode kernels must have launched;
+   flash-prefill and split-KV decode kernels must have launched; then
+   the decode-step profile, which must show one page-walk kernel,
+   launched once per layer;
 5. the same weights at ``--max-model-len 2048``: decode takes the single
    page walk, whose kernel must have launched; then the decode-step
    profile;
 6. the same weights with int8 KV pages (``--kv-cache-dtype int8``), at
    ``--max-model-len 4096`` (the int8 split walk must launch; the plain
    forward reads K/V through ``kv_quantize`` for the decoded rows, as
-   the engine's pages hold them) and at 2048 (the int8 single walk).
+   the engine's pages hold them; then its decode-step profile, as in
+   phase 4) and at 2048 (the int8 single walk).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -84,7 +92,13 @@ MAX_TOKENS = 32
 DECODE_CTX = (100, 600, 1100, 1600, 2100, 2600, 3300, 4000)
 # the same at the 2048 serve leg's shape (max-model-len 2048: 16 pages)
 DECODE_CTX_2048 = (64, 300, 550, 800, 1050, 1300, 1650, 2048)
+# the decode-step profile's contexts (prompts of 100…1500 plus the first
+# decoded token), at which the 4096 serve leg runs the split walk
+DECODE_CTX_SERVE = (101, 301, 501, 701, 901, 1101, 1301, 1501)
 KV_HEADS, GROUP, HEAD_DIM, PAGE = 8, 4, 128, 128
+# the page walks' kernel names in a profile: this tree's one kernel, and
+# the split walk's two kernels of earlier trees (for tools/walk_ab.py)
+WALK_KERNELS = ("walk_kernel", "split_kernel", "kvsplit_combine_kernel")
 
 
 def log(msg: str) -> None:
@@ -259,6 +273,18 @@ def paged_pool(gen, rows, int8: bool, L: int = 2, mp: int = 32):
             tables.cuda())
 
 
+def ragged_batch(rows, pad: int = 0):
+    """``(row_starts, q_begins, q_lens)`` on the card for rows ``[(start,
+    n)]`` laid out in order, and the token count with ``pad`` padding
+    tokens (in no row) after them."""
+    import torch
+
+    q_lens = torch.tensor([n for _, n in rows], dtype=torch.int32)
+    q_begins = torch.cumsum(q_lens, 0, dtype=torch.int32) - q_lens
+    starts = torch.tensor([s for s, _ in rows], dtype=torch.int32)
+    return (*(t.cuda() for t in (starts, q_begins, q_lens)), int(q_lens.sum()) + pad)
+
+
 def attention_cost(rows, int8: bool) -> tuple[float, float]:
     """(FLOP, bytes) of causal paged attention for rows ``[(start, n)]``:
     each live K/V byte read once (int8 pages: Hd codes + one f32 scale
@@ -332,11 +358,9 @@ def check_paged(gen, split: bool, int8: bool = False) -> dict:
     for multi_token in (True, False):
         rows = [(c - 1, 1) for c in DECODE_CTX] + ([(1000, 64)] if multi_token else [])
         kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
-        q_lens = torch.tensor([n for _, n in rows], dtype=torch.int32)
-        q_begins = torch.cumsum(q_lens, 0, dtype=torch.int32) - q_lens
-        starts = torch.tensor([s for s, _ in rows], dtype=torch.int32)
-        desc = (tables, *(t.cuda() for t in (starts, q_begins, q_lens)))
-        q = torch.randn((int(q_lens.sum()), KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+        *ragged, T = ragged_batch(rows)
+        desc = (tables, *ragged)
+        q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
                         device="cuda").to(torch.bfloat16)
         scales = (ks, vs) if int8 else ()
         layer_scales = (ks[layer], vs[layer]) if int8 else ()
@@ -455,6 +479,117 @@ def check_clusters(gen) -> int:
                         f"paged decode {tag}", PAGED_ROW_TOL, HEAD_DIM)
             n += 2
     return n
+
+
+def check_split_clusters(gen) -> int:
+    """Untimed checks of the split walk's fixed chunks (one cluster of 8
+    ranks per token and KV head, rank c on pages [c cp, (c + 1) cp), cp =
+    ceil(mp / 8)), each against the plain split walk: mp 5 (ranks 5-7 past
+    the table), mp 13 (cp 2: the last rank empty), windows that start
+    mid-chunk past the first chunks, ps 16 and 128, G 1, 4 and 8, Hd 64
+    and 128, bf16 and int8 pages (int8 under windows too).  Every batch
+    holds decode rows, a 3- and a 10-token row, an inert row (q_len 0)
+    and two padding tokens.  Returns the number of cases."""
+    import torch
+
+    from fusioninfer_tpu_torch.models.quantization import kv_quantize
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    KV, n = 2, 0
+    for ps, mp, G, Hd, window, int8 in [(16, 5, 4, 128, None, False),
+                                        (16, 13, 1, 64, None, False),
+                                        (128, 13, 8, 128, 700, False),
+                                        (16, 32, 2, 64, 100, True),
+                                        (128, 32, 4, 128, 1300, True),
+                                        (16, 13, 8, 64, None, True)]:
+        cap = mp * ps
+        rows = [(cap - 1, 1), (0, 0), (cap // 3, 3), (5, 10), (cap // 2, 1), (2, 1)]
+        *desc, T = ragged_batch(rows, pad=2)
+        n_pages = len(rows) * mp + 1
+        tables = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(mp))
+        tables = tables.reshape(len(rows), mp).to(torch.int32).cuda()
+        q = torch.randn((T, KV * G, Hd), generator=gen, device="cuda").to(torch.bfloat16)
+        shape = (2, KV, n_pages, ps, Hd)
+        kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        sc = ()
+        if int8:
+            (kp, ks), (vp, vs) = kv_quantize(kp), kv_quantize(vp)
+            sc = (ks[..., None, :].contiguous(), vs[..., None, :].contiguous())
+        out = pa.ragged_paged_attention_kvsplit(q, kp, vp, tables, *desc, *sc, window=window,
+                                                layer=1)
+        ref = pa.reference_ragged_paged_attention_kvsplit(q, kp[1], vp[1], tables, *desc,
+                                                          *(x[1] for x in sc), window=window)
+        check_close(out, ref, f"split walk mp {mp} ps {ps} G{G} Hd{Hd} window {window}"
+                    + (" int8" if int8 else ""), PAGED_ROW_TOL, Hd)
+        if out[-2:].any():
+            raise AssertionError(f"split walk mp {mp}: padding tokens are not zeros")
+        n += 1
+    return n
+
+
+def check_split_bits(gen) -> int:
+    """The split walk's bits of a row do not depend on the batch: each of
+    the 8 decode rows (ctx 100…4000, 32-page tables) run alone (T1), in
+    the decode step (T8) and beside a 64-token row at 1000 (T72) gives
+    ``torch.equal`` outputs, on bf16 and on int8 pages.  Returns the
+    number of rows compared."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    rows = [(c - 1, 1) for c in DECODE_CTX] + [(1000, 64)]
+    n = 0
+    for int8 in (False, True):
+        kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+        sc = (ks, vs) if int8 else ()
+        *desc, T = ragged_batch(rows)
+        q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+
+        def walk(n_rows, first=0):
+            t = tables[first:first + n_rows]
+            if n_rows == len(rows):
+                return pa.ragged_paged_attention_kvsplit(q, kp, vp, t, *desc, *sc, layer=1)
+            starts = desc[0][first:first + n_rows]
+            ones = torch.ones(n_rows, dtype=torch.int32, device="cuda")
+            begins = torch.arange(n_rows, dtype=torch.int32, device="cuda")
+            return pa.ragged_paged_attention_kvsplit(q[first:first + n_rows], kp, vp, t,
+                                                     starts, begins, ones, *sc, layer=1)
+
+        t72, t8 = walk(len(rows)), walk(len(DECODE_CTX))
+        for i in range(len(DECODE_CTX)):
+            t1 = walk(1, i)[0]
+            if not (torch.equal(t1, t8[i]) and torch.equal(t1, t72[i])):
+                raise AssertionError(f"split walk{' int8' if int8 else ''}: row {i} (ctx "
+                                     f"{DECODE_CTX[i]}) differs between T1, T8 and T72")
+            n += 1
+    return n
+
+
+def check_split_serve(gen, int8: bool) -> dict:
+    """The split walk, timed at the 4096 serve leg's decode-profile shape:
+    8 decode rows with contexts 101…1501 over 32-page tables (a two-layer
+    pool read at layer 1), against the plain split walk."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    rows = [(c - 1, 1) for c in DECODE_CTX_SERVE]
+    kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+    *desc, T = ragged_batch(rows)
+    q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    sc = (ks, vs) if int8 else ()
+    lsc = (ks[1], vs[1]) if int8 else ()
+    return measure(
+        "paged split-KV" + (" int8" if int8 else ""),
+        "8 decode rows ctx 101..1501, mp 32, ps 128" + (", int8 pages" if int8 else ""),
+        lambda: pa.ragged_paged_attention_kvsplit(q, kp, vp, tables, *desc, *sc, layer=1),
+        lambda: pa.reference_ragged_paged_attention_kvsplit(q, kp[1], vp[1], tables, *desc,
+                                                            *lsc),
+        PAGED_ROW_TOL, rows, int8,
+        (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[1], vp[1], tables, rows)))
 
 
 def primitive_cases(gen) -> list[dict]:
@@ -906,11 +1041,23 @@ def profile_decode(engine, n_steps: int = 8) -> dict:
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_steps
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    walks = [e for e in kernels if any(k in e.key for k in WALK_KERNELS)]
     return {"batch": len(lens), "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
+            "walk_ms_per_step": sum(dev_us(e) for e in walks) / 1e3 / n_steps,
+            "walk_kernels_per_step": {e.key[:80]: e.count / n_steps for e in walks},
             "top_kernels_ms_per_step": {e.key[:80]: dev_us(e) / 1e3 / n_steps
                                         for e in top}}
+
+
+def check_one_walk_per_layer(prof: dict, n_layers: int) -> None:
+    """A decode step of the split walk launches one page-walk kernel per
+    layer and nothing else of the walk (no second, combining kernel)."""
+    launched = prof["walk_kernels_per_step"]
+    if list(launched.values()) != [n_layers]:
+        raise AssertionError(f"decode step: page-walk kernels {launched}, expected one "
+                             f"kernel launched {n_layers} times per step")
 
 
 def serve_leg(engine, prompts, must_launch: tuple[str, ...]) -> dict:
@@ -950,7 +1097,9 @@ def log_profile(prof: dict, card: str) -> None:
     share = prof["device_busy_share"]
     log(f"  decode step, batch 8 (contexts 100..1500): {prof['wall_ms_per_step']:.3f} ms "
         f"wall, {prof['device_ms_per_step']:.3f} ms on the device "
-        f"(busy share {share if share is None else round(share, 4)}) on {card}")
+        f"(busy share {share if share is None else round(share, 4)}) on {card}; page walk "
+        f"{prof['walk_ms_per_step']:.4f} ms/step, launches per step "
+        f"{prof['walk_kernels_per_step']}")
     for name, ms in prof["top_kernels_ms_per_step"].items():
         log(f"    {ms:8.4f} ms/step  {name}")
 
@@ -1002,9 +1151,16 @@ def main() -> int:
     prims = {case["name"]: check_primitive(case) for case in cases}
     walks_2048 = {("int8" if int8 else "bf16"): check_walk_2048(gen, int8)
                   for int8 in (False, True)}
+    split_serve = {("int8" if int8 else "bf16"): check_split_serve(gen, int8)
+                   for int8 in (False, True)}
     log(f"  {check_clusters(gen)} cluster cases (the single walk and paged decode at CL 1, "
         "2, 4 and 8; short rows with ranks that hold no keys, an inactive slot, ps 16 and "
         "128, bf16 and int8 pages under a mid-page window) within the bound")
+    log(f"  {check_split_clusters(gen)} split-cluster cases (mp 5 and 13: ranks past the "
+        "table; windows from mid-chunk; ps 16 and 128, G 1/2/4/8, Hd 64 and 128, bf16 and "
+        "int8, inert rows and padding tokens) within the bound")
+    log(f"  {check_split_bits(gen)} rows of the split walk bit-identical alone (T1), in T8 "
+        "and in T72, bf16 and int8 pages")
     log(f"  {check_variants(gen)} further cases (windows, ragged S, Hd 64, G 1/2/8, "
         "ps 16, inactive and padding rows, int8) within the bound")
     log(f"  {check_window_split(gen)} key-split cases (verify over 1, 2 and 3 chunks of "
@@ -1027,6 +1183,7 @@ def main() -> int:
     serve4 = serve_leg(engine, prompts, ("flash_attention", "ragged_paged_attention_kvsplit"))
     prof4 = profile_decode(engine)
     log_profile(prof4, card)
+    check_one_walk_per_layer(prof4, cfg.n_layers)
     params = engine.params
     del engine
     torch.cuda.empty_cache()
@@ -1053,6 +1210,7 @@ def main() -> int:
                                          "ragged_paged_attention_kvsplit_int8"))
     prof6 = profile_decode(engine)
     log_profile(prof6, card)
+    check_one_walk_per_layer(prof6, cfg.n_layers)
     del engine
     torch.cuda.empty_cache()
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda", "int8"),
@@ -1081,6 +1239,12 @@ def main() -> int:
         for sfx in ("", "_int8"):
             kernels.append(kernel_row(name + sfx, source, f"{pa_py}:{line}",
                                       launches_b[name + sfx], prims[name + sfx]))
+    for pages, res in split_serve.items():
+        leg = serve4 if pages == "bf16" else serve6
+        name = "ragged_paged_attention_kvsplit" + ("_int8" if pages == "int8" else "")
+        log(f"  split walk at the 4096 leg's decode shape, {pages}: kernel {res['ms']:.4f} ms, "
+            f"sdpa {res['library_ms']} ms, bound {res['bound_ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms; {leg['launches'][name]} launches in the 4096 leg")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "device": kind, "torch": torch.__version__,
@@ -1088,7 +1252,7 @@ def main() -> int:
                    "walks": {f"{'split' if sp else 'single'}{'_int8' if q8 else ''}": r
                              for (sp, q8), r in walks.items()},
                    "primitives": prims, "primitive_launches": launches_b,
-                   "walks_2048": walks_2048,
+                   "walks_2048": walks_2048, "split_serve_shape": split_serve,
                    "serve_4096": {**serve4, "decode_profile": prof4},
                    "serve_2048": {**serve5, "decode_profile": prof5},
                    "serve_int8_4096": {**serve6, "decode_profile": prof6},

@@ -97,11 +97,21 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
+// the two halves of cluster_sync: a block may arrive and leave without
+// waiting, while the blocks that stay wait for every block's arrival
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // every thread of every block of the cluster: writes to shared memory before
 // it are visible to the whole cluster after it
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 
 // the address of `p` (in this block's shared memory) in block `rank`'s
@@ -112,10 +122,41 @@ __device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
   return r;
 }
 
+// One arrival on the mbarrier at `bar`'s place in block `rank`'s shared
+// memory, releasing at cluster scope what this thread has written (and,
+// after a block barrier, what its block has): the waiter's acquire
+// (mbar_wait_cluster) then sees it through ld.shared::cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_map(bar, rank))
+               : "memory");
+}
+
+// mbar_wait with cluster-scope acquire: the phase's remote arrivals'
+// writes are visible after it; traps after 2^24 tries, as mbar_wait
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 24)) __trap();
+  }
+}
+
 __device__ __forceinline__ float ld_cluster(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 
 // -- copies -----------------------------------------------------------------------
@@ -665,9 +706,11 @@ __device__ __forceinline__ void consume_pingpong(RowState<HD>& st, int wg, uint3
   r.release(n - 1);
 }
 
-// The fixed fold of split partials (natural-log units), as the split walk's
-// combine (csrc/paged_attention.cu, kvsplit_combine_kernel) folds them:
-// (m, l, a) absorbs the next chunk's (mc, lc, ac); -inf - -inf is guarded.
+// The fixed fold of split partials (natural-log units), as the plain
+// combine_kvsplit_partials (ops/paged_attention.py) folds them: (m, l, a)
+// absorbs the next chunk's or rank's (mc, lc, ac); -inf - -inf is guarded.
+// The page walks' cluster merge and the query-window kernel's combine fold
+// with it, left to right.
 __device__ __forceinline__ void fold(float& m, float& l, float* a, int n, float mc, float lc,
                                      const float* ac) {
   const float m_new = fmaxf(m, mc);

@@ -48,10 +48,8 @@ SIGNATURES = {
         # tables, row_starts, q_begins, q_lens, out, T, R, KV, G, Hd,
         # n_pages, ps, mp, layer, scale, window, cluster, stream
         "ragged_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _I, _I, _P],
-        # ... plus acc/m/l partials before out, and chunks, chunk_pages
-        # in place of cluster
-        "ragged_paged_attention_kvsplit": [_P] * 13 + [_I] * 9
-                                          + [_F, _I, _I, _I, _P],
+        # the same, with chunk_pages (ceil(mp / 8)) in place of cluster
+        "ragged_paged_attention_kvsplit": [_P] * 10 + [_I] * 9 + [_F, _I, _I, _P],
         # q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out,
         # B, KV, G, Hd, n_pages, ps, mp, layer, scale, window, cluster,
         # stream

@@ -28,26 +28,29 @@ K scale multiplies the scores after the dot and the V scale the
 probabilities before P·V, in the kernels and in the plain versions, so
 no page is ever dequantized into memory.
 
-Kernels (``csrc/paged_attention.cu``): the single walk and paged decode
-share one kernel that runs a thread-block cluster of ``CL`` blocks per
-(token or sequence, KV head), ``CL`` from :func:`pick_cluster_size`
-(shapes only, so a launch reads nothing back from the card and a CUDA
-graph can capture it).  Rank ``r`` of a cluster walks the ``r``-th share
-of the pages the query sees (:func:`cluster_key_ranges`), streamed into
-shared memory by bulk copies, one per page segment, through an mbarrier
-ring; four warps score each key against the ``G = H // KV`` query heads
-and accumulate P·V in f32; the ranks' f32 ``(acc, m, l)`` are folded left
-to right from rank 0 through distributed shared memory, each rank
-folding a slice of the outputs (:func:`reference_cluster_partials` is
-the plain version of those partials).  A row's bits depend on ``CL``,
-which depends on the batch's token count, never on the other rows'
-contents.  The split walk runs one
-block of eight warps per (token, KV head, virtual chunk), 32 keys per
-warp step, one key per lane, writes f32 partials, and a second small
-kernel runs the fixed-order combine.  Blocks per token (not per 8-token
-tile, as on the TPU) because a decode step's tokens each belong to a
-different row with different pages, and the GPU needs many blocks in
-flight to reach its memory rate.
+Kernels (``csrc/paged_attention.cu``): the three walks share one kernel
+that runs a thread-block cluster of ``CL`` blocks per (token or
+sequence, KV head), with a partition rule per walk
+(:func:`cluster_key_ranges`).  In the single walk and paged decode,
+``CL`` comes from :func:`pick_cluster_size` (shapes only, so a launch
+reads nothing back from the card and a CUDA graph can capture it) and
+rank ``r`` walks the ``r``-th share of the pages the query sees; a row's
+bits then depend on ``CL``, which depends on the batch's token count.  In
+the split walk ``CL`` is ``KV_SPLIT_CHUNKS`` and rank ``c`` walks virtual
+chunk ``c``, the ``ceil(mp / 8)`` pages from page ``c·ceil(mp / 8)`` of
+the row's table, cut to the visible keys, so a row's bits depend only on
+its positions and ``mp``, never on ``T`` or on the other rows; a rank
+whose chunk holds no visible key leaves at once.  Each rank's keys are
+streamed into shared memory by bulk copies, one per page segment, through
+an mbarrier ring; four warps (eight in the split walk) score each key
+against the ``G = H // KV`` query heads and accumulate P·V in f32; the
+ranks' f32 ``(acc, m, l)`` are folded left to right from rank 0 through
+distributed shared memory, each rank folding a slice of the outputs
+(:func:`reference_cluster_partials` is the plain version of those
+partials, :func:`combine_kvsplit_partials` of the fold).  One launch, no
+scratch.  Blocks per token (not per 8-token tile, as on the TPU) because
+a decode step's tokens each belong to a different row with different
+pages, and the GPU needs many blocks in flight to reach its memory rate.
 
 Suffix prefill and verify share ``csrc/paged_window_attention.cu``,
 built on Hopper's own machinery (``csrc/hopper_attention.cuh``): tiles
@@ -69,8 +72,8 @@ does ~4·G·Hd FLOP per key and head, far below the 295 FLOP/byte ridge,
 so it is bound by bytes (3.35 TB/s); int8 pages move Hd + 4 bytes per
 token and head instead of 2·Hd.  The walks read each live page row once
 per (token, KV head) and keep the scores out of device memory; the split
-variant multiplies the blocks in flight by ``KV_SPLIT_CHUNKS`` for long
-contexts.
+walk gives every (token, KV head) ``KV_SPLIT_CHUNKS`` blocks whatever the
+batch.
 """
 
 from __future__ import annotations
@@ -131,34 +134,45 @@ def pick_cluster_size(n_items: int, kv_heads: int, max_pages: int,
 
 
 def cluster_key_ranges(k_lo: torch.Tensor, k_hi: torch.Tensor,
-                       page_size: int, cluster: int):
+                       page_size: int, cluster: int,
+                       chunk_pages: int | None = None):
     """Each rank's keys ``(lo, hi)``, each ``[cluster, *k_lo.shape]``, for
-    queries that see keys ``[k_lo, k_hi)``: of the ``n`` pages holding
-    them, rank ``r`` takes pages ``[p0 + r·s, p0 + (r + 1)·s)`` with ``p0``
-    the first such page and ``s = ceil(n / cluster)``, cut to the visible
-    keys.  A rank past the last page gets ``lo == hi``."""
+    queries that see keys ``[k_lo, k_hi)``, by the kernel's rules.  The
+    single walk and paged decode (``chunk_pages`` None): of the ``n`` pages
+    holding the keys, rank ``r`` takes pages ``[p0 + r·s, p0 + (r + 1)·s)``
+    with ``p0`` the first such page and ``s = ceil(n / cluster)``.  The
+    split walk (``chunk_pages = ceil(mp / KV_SPLIT_CHUNKS)``, ``cluster =
+    KV_SPLIT_CHUNKS``): rank ``c`` takes chunk ``c``, pages ``[c·chunk_pages,
+    (c + 1)·chunk_pages)`` counted from page 0 of the table.  Either is cut
+    to the visible keys; a rank with none gets ``lo == hi``."""
     ps = page_size
-    p_lo = k_lo // ps
-    p_hi = torch.where(k_hi > k_lo, (k_hi + ps - 1) // ps, p_lo)
-    share = (p_hi - p_lo + cluster - 1) // cluster
     r = torch.arange(cluster, device=k_lo.device).reshape(
         (cluster,) + (1,) * k_lo.dim())
-    pa = p_lo + r * share
-    pb = torch.minimum(pa + share, p_hi)
+    if chunk_pages is not None:
+        pa = r * chunk_pages
+        pb = pa + chunk_pages
+    else:
+        p_lo = k_lo // ps
+        p_hi = torch.where(k_hi > k_lo, (k_hi + ps - 1) // ps, p_lo)
+        share = (p_hi - p_lo + cluster - 1) // cluster
+        pa = p_lo + r * share
+        pb = torch.minimum(pa + share, p_hi)
     lo = torch.maximum(k_lo, pa * ps)
     return lo, torch.maximum(torch.minimum(k_hi, pb * ps), lo)
 
 
 def reference_cluster_partials(q, k_pages, v_pages, page_tables, row_starts,
                                q_begins, q_lens, k_scales=None, v_scales=None,
-                               window=None, cluster: int = 1):
+                               window=None, cluster: int = 1,
+                               chunk_pages: int | None = None):
     """Plain version of the cluster walk's per-rank f32 partials: for each
     rank, the raw ``(acc [CL, T, KV, G, Hd], m [CL, T, KV, G], l [CL, T,
     KV, G])`` over exactly the keys :func:`cluster_key_ranges` gives it
-    (pages ``[KV, n_pages, ps, Hd]``); a rank with no keys, and every rank
-    of a token in no row, is ``(0, -inf, 0)``.  The V scale weights
-    ``acc``, not ``l``.  :func:`combine_kvsplit_partials` folds them in
-    rank order into the walk's output."""
+    (with ``chunk_pages``, the split walk's fixed chunks; pages ``[KV,
+    n_pages, ps, Hd]``); a rank with no keys, and every rank of a token in
+    no row, is ``(0, -inf, 0)``.  The V scale weights ``acc``, not ``l``.
+    :func:`combine_kvsplit_partials` folds them in rank order into the
+    walk's output."""
     T = q.shape[0]
     ps = k_pages.shape[2]
     mp = page_tables.shape[1]
@@ -169,7 +183,8 @@ def reference_cluster_partials(q, k_pages, v_pages, page_tables, row_starts,
     pos = (row_starts[row_of] + off).long()
     k_hi = torch.where(live, torch.clamp(pos + 1, max=mp * ps), 0)
     k_lo = torch.clamp(pos - window + 1, min=0) if window else torch.zeros_like(pos)
-    lo, hi = cluster_key_ranges(torch.where(live, k_lo, 0), k_hi, ps, cluster)
+    lo, hi = cluster_key_ranges(torch.where(live, k_lo, 0), k_hi, ps, cluster,
+                                chunk_pages)
     key = torch.arange(mp * ps, device=q.device)
     ranks = (key >= lo[..., None]) & (key < hi[..., None]) & mask[0, :, 0]  # [CL, T, S]
     s = torch.where(ranks[:, None, :, None, :], s[None], float("-inf"))  # [CL, KV, T, G, S]
@@ -514,12 +529,17 @@ def _ragged_operands(q, k_pages, v_pages, descriptors, k_scales, v_scales,
     return q.shape[0], H, Hd, KV, n_pages, ps, tables.shape[0], tables.shape[1]
 
 
-def _cluster_walk(q, T: int, KV: int, ps: int, mp: int, quantized: bool) -> int:
-    """The single walk's and paged decode's cluster size for ``T`` queries;
-    raises for int8 pages whose size is not a multiple of 4 (the kernel
-    copies their scales in 16-byte runs)."""
+def _check_int8_page_size(ps: int, quantized: bool) -> None:
+    """The walks copy int8 pages' scales in 16-byte runs: their page size
+    must be a multiple of 4."""
     if quantized and ps % 4:
         raise ValueError(f"int8 pages need a page size that is a multiple of 4, got {ps}")
+
+
+def _cluster_walk(q, T: int, KV: int, ps: int, mp: int, quantized: bool) -> int:
+    """The single walk's and paged decode's cluster size for ``T`` queries
+    (raises for an int8 page size the kernel cannot take)."""
+    _check_int8_page_size(ps, quantized)
     return pick_cluster_size(T, KV, mp, _sm_count(q.device))
 
 
@@ -562,10 +582,11 @@ def ragged_paged_attention_kvsplit(q, k_pages, v_pages, page_tables,
                                    k_scales=None, v_scales=None, *,
                                    window: int | None = None,
                                    layer: int | None = None) -> torch.Tensor:
-    """The split page walk → ``[T, H·Hd]``: the CUDA kernels (partials,
-    then combine) for CUDA tensors, the plain split version for CPU
-    tensors.  Every one of the ``KV_SPLIT_CHUNKS`` virtual chunks is its
-    own block."""
+    """The split page walk → ``[T, H·Hd]``: the CUDA kernel for CUDA
+    tensors, :func:`reference_ragged_paged_attention_kvsplit` for CPU
+    tensors.  One launch in clusters of ``KV_SPLIT_CHUNKS`` blocks per
+    (token, KV head), rank ``c`` walking virtual chunk ``c`` of
+    ``ceil(mp / KV_SPLIT_CHUNKS)`` pages; no scratch, nothing read back."""
     descriptors = (page_tables, row_starts, q_begins, q_lens)
     if not dispatch.use_kernel(q, k_pages, v_pages, *descriptors):
         kp, vp, ks, vs = _plain_pages(k_pages, v_pages, k_scales, v_scales, layer)
@@ -577,17 +598,13 @@ def ragged_paged_attention_kvsplit(q, k_pages, v_pages, page_tables,
     from fusioninfer_tpu_torch.ops import _build
 
     fn = _build.entry("paged_attention.cu", "ragged_paged_attention_kvsplit")
-    C = KV_SPLIT_CHUNKS
-    G = H // KV
     out = torch.empty((T, H * Hd), dtype=q.dtype, device=q.device)
     if T == 0:
         return out
-    acc = torch.empty((C, T, KV, G, Hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((C, T, KV, G), dtype=torch.float32, device=q.device)
-    l = torch.empty((C, T, KV, G), dtype=torch.float32, device=q.device)
-    err = fn(*_pointers(q, kp, vp, ks, vs, *descriptors, acc, m, l, out),
-             T, R, KV, G, Hd, n_pages, ps, mp, li, Hd ** -0.5,
-             window or 0, C, -(-mp // C), _stream(q))
+    _check_int8_page_size(ps, ks is not None)
+    err = fn(*_pointers(q, kp, vp, ks, vs, *descriptors, out),
+             T, R, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
+             window or 0, -(-mp // KV_SPLIT_CHUNKS), _stream(q))
     _build.check(err, "ragged_paged_attention_kvsplit")
     dispatch.count_launch(_variant("ragged_paged_attention_kvsplit", ks))
     return out

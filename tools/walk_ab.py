@@ -1,19 +1,23 @@
-"""The single page walk and paged decode of two checkouts of the port,
-timed on one card in turns (A, B, B, A).
+"""The page walks (single, split) and paged decode of two checkouts of
+the port, timed on one card in turns (A, B, B, A).
 
     python3 tools/walk_ab.py PATH_A PATH_B
 
 Each turn runs in a process of its own (both checkouts hold a package of
 one name), builds that checkout's kernels into its own ``build/kernels``,
-holds its walk against the plain version and prints one line ``RESULT
-{json}``: walk and decode ms (CUDA-graph replays, ``chip_smoke.time_graph``)
-at 8 one-token rows with contexts 100…4000 (32-page tables) and
-101…1501 (16-page tables, the decode profile's contexts), on bf16 and on
-int8 pages; then a qwen3-8b engine at max-model-len 2048 (the single
-walk), random weights from seed 0, through ``chip_smoke.profile_decode``:
-wall and device ms per decode step and the walk's device ms per step.
-The helpers come from this checkout's ``chip_smoke.py``.  Needs one CUDA
-card; the first line printed is the card's name and power limit.
+holds its walks against their plain versions and prints one line
+``RESULT {json}``: ms (CUDA-graph replays, ``chip_smoke.time_graph``) at 8
+one-token rows, on bf16 and on int8 pages, of the single walk and paged
+decode at contexts 100…4000 (32-page tables) and 101…1501 (16-page
+tables, the 2048 leg's decode profile), and of the split walk at
+contexts 100…4000 and 101…1501, both over 32-page tables (the 4096
+leg's); then qwen3-8b engines at max-model-len 2048 (the single walk)
+and 4096 (the split walk, on bf16 and on int8 KV pages), random weights
+from seed 0, each through
+``chip_smoke.profile_decode``: wall and device ms per decode step and
+the walk's device ms per step.  The helpers come from this checkout's
+``chip_smoke.py``.  Needs one CUDA card; the first line printed is the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -26,8 +30,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = (("ctx 100..4000", (100, 600, 1100, 1600, 2100, 2600, 3300, 4000), 32),
-          ("ctx 101..1501", (101, 301, 501, 701, 901, 1101, 1301, 1501), 16))
+CTX_LONG = (100, 600, 1100, 1600, 2100, 2600, 3300, 4000)
+CTX_SERVE = (101, 301, 501, 701, 901, 1101, 1301, 1501)
+# (label, contexts, table pages, walks timed there)
+SHAPES = (("ctx 100..4000", CTX_LONG, 32, ("walk", "decode", "split")),
+          ("ctx 101..1501", CTX_SERVE, 16, ("walk", "decode")),
+          ("ctx 101..1501 mp 32", CTX_SERVE, 32, ("split",)))
 
 
 def _chip_smoke():
@@ -57,7 +65,7 @@ def one_turn(tree: str) -> dict:
     _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     res = {}
-    for label, ctx, mp in SHAPES:
+    for label, ctx, mp, timed in SHAPES:
         for int8 in (False, True):
             rows = [(c - 1, 1) for c in ctx]
             kp, vp, ks, vs, tables = cs.paged_pool(gen, rows, int8, mp=mp)
@@ -70,28 +78,40 @@ def one_turn(tree: str) -> dict:
             lsc = (ks[1], vs[1]) if int8 else ()
             tag = f"{label} {'int8' if int8 else 'bf16'}"
 
-            def walk():
-                return pa.ragged_paged_attention(q, kp, vp, tables, starts, begins, ones,
-                                                 *sc, layer=1)
-
-            def decode():
-                return pa.paged_decode_attention(q, kp, vp, tables, starts + 1, *sc, layer=1)
-
-            cs.check_close(walk(), pa.reference_ragged_paged_attention(
-                q, kp[1], vp[1], tables, starts, begins, ones, *lsc), tag, cs.PAGED_ROW_TOL,
-                cs.HEAD_DIM)
-            res[f"walk {tag}"] = cs.time_graph(walk)
-            res[f"decode {tag}"] = cs.time_graph(decode)
+            desc = (tables, starts, begins, ones)
+            walks = {
+                "walk": (lambda: pa.ragged_paged_attention(q, kp, vp, *desc, *sc, layer=1),
+                         lambda: pa.reference_ragged_paged_attention(q, kp[1], vp[1], *desc,
+                                                                     *lsc)),
+                "decode": (lambda: pa.paged_decode_attention(q, kp, vp, tables, starts + 1,
+                                                             *sc, layer=1),
+                           lambda: pa.reference_paged_attention(q, kp[1], vp[1], tables,
+                                                                starts + 1, *lsc)),
+                "split": (lambda: pa.ragged_paged_attention_kvsplit(q, kp, vp, *desc, *sc,
+                                                                    layer=1),
+                          lambda: pa.reference_ragged_paged_attention_kvsplit(
+                              q, kp[1], vp[1], *desc, *lsc))}
+            for name in timed:
+                kern, plain = walks[name]
+                cs.check_close(kern(), plain(), f"{name} {tag}", cs.PAGED_ROW_TOL, cs.HEAD_DIM)
+                res[f"{name} {tag}"] = cs.time_graph(kern)
     cfg = get_preset("qwen3-8b")
-    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda"),
-                          max_batch_size=8, seed=cs.SEED, device="cuda")
-    if engine.kv_splits != 0:
-        raise RuntimeError("expected the single walk at max-model-len 2048")
-    prof = cs.profile_decode(engine)
-    res["step wall ms"] = prof["wall_ms_per_step"]
-    res["step device ms"] = prof["device_ms_per_step"]
-    res["walk ms per step"] = sum(ms for name, ms in prof["top_kernels_ms_per_step"].items()
-                                  if "walk_kernel" in name or "ragged_kernel" in name)
+    params = None
+    for max_len, splits, kv_dtype in ((2048, False, "model"), (4096, True, "model"),
+                                      (4096, True, "int8")):
+        engine = NativeEngine(cfg, auto_cache_config(cfg, 128, max_len, 8, "cuda", kv_dtype),
+                              max_batch_size=8, seed=cs.SEED, params=params, device="cuda")
+        if (engine.kv_splits != 0) != splits:
+            raise RuntimeError(f"max-model-len {max_len}: kv_splits {engine.kv_splits}")
+        prof = cs.profile_decode(engine)
+        leg = f"{max_len}" + (" int8" if kv_dtype == "int8" else "")
+        res[f"{leg} step wall ms"] = prof["wall_ms_per_step"]
+        res[f"{leg} step device ms"] = prof["device_ms_per_step"]
+        res[f"{leg} walk ms per step"] = prof["walk_ms_per_step"]
+        res[f"{leg} walk kernels per step"] = prof["walk_kernels_per_step"]
+        params = engine.params
+        del engine
+        torch.cuda.empty_cache()
     return res
 
 
