@@ -29,9 +29,16 @@ Phases, in order; any failure exits non-zero before the result line:
    three 1024-key chunks in one batch, and a windowed suffix prefill on
    two consumer warpgroups across a chunk boundary, held also against
    the plain chunk partials folded by the split combine) and flash at S
-   off its 128-row q tile;
+   off its 128-row q tile.  At the fused step's shape (the 8 decode rows
+   plus a 512-token prefill chunk at 1024) both walks are held against
+   their plain versions on both page types and timed beside the
+   query-window kernel's C512 time; and each decode row must come out
+   bit-identical alone, in the decode-only launch and inside the fused
+   launch, the single walk at the cluster size the engine fixes;
 4. serve ``qwen3-8b`` at full width (36 layers, random bf16 weights from
-   a seed) through the port's HTTP server at ``--max-model-len 4096``:
+   a seed) through the port's HTTP server at ``--max-model-len 4096``
+   (phases 4-6 as the earlier slices served: ``--no-prefix-caching
+   --no-token-budget``):
    four requests, two of them SSE; every request must return its full
    length, the served tokens must be the greedy choice of a plain
    full-sequence forward that runs none of the kernels, and the
@@ -45,7 +52,17 @@ Phases, in order; any failure exits non-zero before the result line:
    ``--max-model-len 4096`` (the int8 split walk must launch; the plain
    forward reads K/V through ``kv_quantize`` for the decoded rows, as
    the engine's pages hold them; then its decode-step profile, as in
-   phase 4) and at 2048 (the int8 single walk).
+   phase 4) and at 2048 (the int8 single walk);
+7. the serve defaults, prefix caching and fused steps, with
+   ``--tokens-per-step 512``, on bf16 pages at 4096 (split walk) and 2048
+   (single walk) and on int8 pages at 2048: the budget the engine's
+   calibration derives on this card is printed, then a miss of a
+   1024-token prefix plus a tail, three hits on that prefix (tails 64-200)
+   and, while they decode, a long prompt chunked into fused steps; the
+   hits must have computed only their suffixes, fused steps must have run
+   with one walk launch per layer per forward, and every served token
+   must pass the greedy check; then the fused step's profile (one walk
+   kernel, one launch per layer a step).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -96,6 +113,14 @@ DECODE_CTX_2048 = (64, 300, 550, 800, 1050, 1300, 1650, 2048)
 # decoded token), at which the 4096 serve leg runs the split walk
 DECODE_CTX_SERVE = (101, 301, 501, 701, 901, 1101, 1301, 1501)
 KV_HEADS, GROUP, HEAD_DIM, PAGE = 8, 4, 128, 128
+# the fused step's shape: the 8 decode rows plus a 512-token prefill chunk
+# starting at position 1024 (tokens per step 512, a chunk of a long prompt)
+FUSED_CHUNK = (1024, 512)
+# the prefix-cache / chunked-prefill serve legs (phase 7): a shared prefix
+# of 1023 byte-tokens plus BOS (8 full pages), tails of 16-200 tokens, one
+# long prompt per leg, every request SSE with MAX_TOKENS greedy tokens
+PREFIX_TAILS = (16, 64, 128, 200)
+TOKENS_PER_STEP = 512
 # the page walks' kernel names in a profile: this tree's one kernel, and
 # the split walk's two kernels of earlier trees (for tools/walk_ab.py)
 WALK_KERNELS = ("walk_kernel", "split_kernel", "kvsplit_combine_kernel")
@@ -592,6 +617,115 @@ def check_split_serve(gen, int8: bool) -> dict:
         (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[1], vp[1], tables, rows)))
 
 
+def plain_in_pieces(plain_walk, q, kp, vp, tables, rows, scales, piece: int = 64):
+    """The plain walk over rows ``[(start, n)]`` (tokens in row order),
+    computed ``piece`` tokens at a time as rows of their own: a token's
+    plain result depends only on its position and its row's pages, and a
+    512-token row's gathered f32 context would take ~9 GB at once."""
+    import torch
+
+    outs, t0 = [], 0
+    for r, (start, n) in enumerate(rows):
+        for i in range(0, n, piece):
+            m = min(piece, n - i)
+            one = torch.ones(1, dtype=torch.int32, device="cuda")
+            outs.append(plain_walk(q[t0 + i: t0 + i + m], kp, vp, tables[r: r + 1],
+                                   one * (start + i), one * 0, one * m, *scales))
+        t0 += n
+    return torch.cat(outs)
+
+
+def check_fused_shape(gen, split: bool, int8: bool, cluster: int) -> dict:
+    """A ragged walk at the fused step's shape: the 8 decode rows (ctx
+    100…4000) plus a 512-token chunk row at 1024 (T520, ps 128, 32-page
+    tables, a two-layer pool read at layer 1), against its plain version,
+    timed beside the bound and SDPA; the single walk at the engine's fixed
+    cluster size ``cluster``."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    rows = [(c - 1, 1) for c in DECODE_CTX] + [FUSED_CHUNK]
+    kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+    *ragged, T = ragged_batch(rows)
+    desc = (tables, *ragged)
+    q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    sc = (ks, vs) if int8 else ()
+    lsc = (ks[1], vs[1]) if int8 else ()
+    if split:
+        def kern():
+            return pa.ragged_paged_attention_kvsplit(q, kp, vp, *desc, *sc, layer=1)
+        plain_walk = pa.reference_ragged_paged_attention_kvsplit
+    else:
+        def kern():
+            return pa.ragged_paged_attention(q, kp, vp, *desc, *sc, layer=1, cluster=cluster)
+        plain_walk = pa.reference_ragged_paged_attention
+    name = ("paged split-KV" if split else f"paged single walk CL {cluster}") + (
+        " int8" if int8 else "")
+    shape = (f"T{T}: 8 decode rows ctx 100..4000 + a 512-token chunk at 1024, ps 128"
+             + (", int8 pages" if int8 else ""))
+    res = measure(name, shape, kern,
+                  lambda: plain_in_pieces(plain_walk, q, kp[1], vp[1], tables, rows, lsc),
+                  PAGED_ROW_TOL, rows, int8,
+                  (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[1], vp[1], tables,
+                                                                  rows)))
+    if not split:  # what the shape rule alone (CL 1 at T520) would take
+        res["ms_shape_rule"] = time_graph(
+            lambda: pa.ragged_paged_attention(q, kp, vp, *desc, *sc, layer=1))
+    return res
+
+
+def check_fused_bits(gen, cluster: int) -> dict:
+    """Each of the 8 decode rows comes out ``torch.equal`` alone (T1), in
+    the decode-only launch (T8) and inside the fused launch beside the
+    512-token chunk (T520), on both walks and both page types, the single
+    walk at the engine's fixed cluster size.  Also counts the rows whose
+    bits would change between T1 and T520 under the shape rule alone
+    (the fault the fixed size repairs).  Returns ``{"rows": n, ...}``."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    rows = [(c - 1, 1) for c in DECODE_CTX] + [FUSED_CHUNK]
+    n, moved = 0, {}
+    for int8 in (False, True):
+        kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+        sc = (ks, vs) if int8 else ()
+        *desc, T = ragged_batch(rows)
+        q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for split in (False, True):
+            def walk(n_rows, first=0, cl=cluster):
+                kw = {} if split else {"cluster": cl}
+                fn = pa.ragged_paged_attention_kvsplit if split else pa.ragged_paged_attention
+                if n_rows == len(rows):
+                    return fn(q, kp, vp, tables, *desc, *sc, layer=1, **kw)
+                ones = torch.ones(n_rows, dtype=torch.int32, device="cuda")
+                begins = torch.arange(n_rows, dtype=torch.int32, device="cuda")
+                return fn(q[first:first + n_rows], kp, vp, tables[first:first + n_rows],
+                          desc[0][first:first + n_rows], begins, ones, *sc, layer=1, **kw)
+
+            fused, t8 = walk(len(rows)), walk(len(DECODE_CTX))
+            tag = ("split walk" if split else f"single walk CL {cluster}") + (
+                " int8" if int8 else "")
+            for i in range(len(DECODE_CTX)):
+                t1 = walk(1, i)[0]
+                if not (torch.equal(t1, t8[i]) and torch.equal(t1, fused[i])):
+                    raise AssertionError(f"{tag}: decode row {i} (ctx {DECODE_CTX[i]}) "
+                                         "differs between T1, T8 and the fused T520")
+                n += 1
+            if not split:
+                shape_rule = pa.ragged_paged_attention(q, kp, vp, tables, *desc, *sc, layer=1)
+                alone = [pa.ragged_paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                                   desc[0][i:i + 1], desc[1][:1] * 0,
+                                                   desc[2][:1] * 0 + 1, *sc, layer=1)[0]
+                         for i in range(len(DECODE_CTX))]
+                moved["int8" if int8 else "bf16"] = sum(
+                    not torch.equal(a, shape_rule[i]) for i, a in enumerate(alone))
+    return {"rows": n, "rows_moved_by_shape_rule": moved}
+
+
 def primitive_cases(gen) -> list[dict]:
     """The three standalone primitives at the stated shapes, each on bf16
     and on int8 pages (two-layer pools read at layer 1): paged decode of
@@ -875,6 +1009,23 @@ def _post(port: int, body: dict, stream: bool):
                 "token_ids": ids}
 
 
+def post_thread(port: int, label: str, text: str, out: dict,
+                errors: list) -> threading.Thread:
+    """A started thread that sends one greedy SSE request of MAX_TOKENS
+    and stores its result under ``out[label]``."""
+    def one():
+        try:
+            out[label] = {**_post(port, {"prompt": text, "max_tokens": MAX_TOKENS,
+                                         "temperature": 0.0, "stream": True},
+                                  stream=True), "prompt": text}
+        except Exception as e:  # noqa: BLE001 - collected and re-raised by the caller
+            errors.append(f"{label}: {e!r}")
+
+    t = threading.Thread(target=one)
+    t.start()
+    return t
+
+
 def drive_server(engine, prompts) -> list[dict]:
     """Start the port's server on localhost, send the prompts at once
     (even-indexed ones as SSE), return each request's result."""
@@ -946,14 +1097,16 @@ def plain_forward(cfg, params, tokens, int8_from: int | None = None):
     return tf.lm_head(cfg, params, tf.rms_norm(x, params["final_norm"], cfg.rms_eps))
 
 
-def check_greedy(engine, results) -> float:
+def check_greedy(engine, results, paged_prompt: bool = False) -> float:
     """The served tokens of each SSE request (flash prefill, paged decode)
     must be the greedy choice of :func:`plain_forward` over the prompt and
     the served tokens (with int8 K/V for the decoded rows when the
-    engine's pages are int8): the served token's logit within ``tol`` of
-    the row's max (bf16 kernels and the f32-math plain attention round
-    differently, and random weights leave near-ties).  Returns the largest
-    gap seen."""
+    engine's pages are int8, and for the prompt rows too with
+    ``paged_prompt``, where the prompt was computed by the page walk over
+    the pages: chunks and cache-hit suffixes): the served token's logit
+    within ``tol`` of the row's max (bf16 kernels and the f32-math plain
+    attention round differently, and random weights leave near-ties).
+    Returns the largest gap seen."""
     import torch
 
     from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -968,8 +1121,9 @@ def check_greedy(engine, results) -> float:
         seq = prompt + r["token_ids"]
         x = torch.tensor([seq[:-1]], device=engine.device)
         with torch.no_grad():
-            logits = plain_forward(engine.cfg, engine.params, x,
-                                   len(prompt) if engine.cache_cfg.quantized else None)
+            int8_from = (0 if paged_prompt else len(prompt)) if engine.cache_cfg.quantized \
+                else None
+            logits = plain_forward(engine.cfg, engine.params, x, int8_from)
             logits = logits[0, len(prompt) - 1:]
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits in the reference forward")
@@ -1000,9 +1154,12 @@ def warm_up(engine, prompts) -> None:
 
 def profile_decode(engine, n_steps: int = 8) -> dict:
     """Eight requests (prompts of 100…1500 byte-tokens) decoding together
-    on ``engine``: wall ms per engine step without the profiler, then the
-    same steps under ``torch.profiler`` for device time per step and the
-    kernels that take it.  Device busy share = device ms / wall ms."""
+    on ``engine``: wall ms per engine step without the profiler, and the
+    CPU time the calling thread spent in those steps (a wall far above it
+    means the thread waited: for the device, or for a core of a shared
+    host), then the same steps under ``torch.profiler`` for device time
+    per step and the kernels that take it.  Device busy share = device
+    ms / wall ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1019,11 +1176,12 @@ def profile_decode(engine, n_steps: int = 8) -> dict:
     torch.cuda.synchronize()
     if engine.num_running != len(lens):
         raise AssertionError(f"profile batch: {engine.num_running} rows running")
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.thread_time()
     for _ in range(n_steps):
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    cpu_ms = (time.thread_time() - c0) * 1e3 / n_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             engine.step()
@@ -1043,7 +1201,7 @@ def profile_decode(engine, n_steps: int = 8) -> dict:
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     walks = [e for e in kernels if any(k in e.key for k in WALK_KERNELS)]
     return {"batch": len(lens), "wall_ms_per_step": wall_ms,
-            "device_ms_per_step": device_ms,
+            "cpu_ms_per_step": cpu_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "walk_ms_per_step": sum(dev_us(e) for e in walks) / 1e3 / n_steps,
             "walk_kernels_per_step": {e.key[:80]: e.count / n_steps for e in walks},
@@ -1096,12 +1254,210 @@ def serve_leg(engine, prompts, must_launch: tuple[str, ...]) -> dict:
 def log_profile(prof: dict, card: str) -> None:
     share = prof["device_busy_share"]
     log(f"  decode step, batch 8 (contexts 100..1500): {prof['wall_ms_per_step']:.3f} ms "
-        f"wall, {prof['device_ms_per_step']:.3f} ms on the device "
+        f"wall, {prof['cpu_ms_per_step']:.3f} ms of the thread's CPU time, "
+        f"{prof['device_ms_per_step']:.3f} ms on the device "
         f"(busy share {share if share is None else round(share, 4)}) on {card}; page walk "
         f"{prof['walk_ms_per_step']:.4f} ms/step, launches per step "
         f"{prof['walk_kernels_per_step']}")
     for name, ms in prof["top_kernels_ms_per_step"].items():
         log(f"    {ms:8.4f} ms/step  {name}")
+
+
+def profile_fused(engine, long_len: int, n_steps: int = 3) -> dict:
+    """Mixed steps: four streams decoding while a ``long_len``-token prompt
+    prefills in budgeted chunks, every step ONE fused forward (asserted by
+    the ledger).  Wall ms per step without the profiler, then device ms per
+    step, the walk's ms and launches per step under ``torch.profiler``
+    over the same steps of a second long prompt; the walk kernels must
+    be one kernel launched once per layer a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fusioninfer_tpu_torch.engine.engine import Request
+    from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+
+    def params(n):
+        return SamplingParams(temperature=0.0, max_tokens=n)
+
+    for i in range(4):
+        engine.add_request(Request(f"fs{i}", [5 + (11 * j + i) % 240 for j in range(100)],
+                                   params(8 * n_steps + 16)))
+    for _ in range(50):
+        if engine.num_running == 4 and not engine.prefilling:
+            break
+        engine.step()
+    out = {}
+    for leg in ("wall", "profile"):
+        engine.add_request(Request(f"fl-{leg}", [7 + (13 * j + len(leg)) % 230
+                                                 for j in range(long_len)], params(2)))
+        engine.step()  # admission and its first chunk
+        before = engine.sched.fused_steps_total
+        packed0 = engine.sched.fused_packed_tokens_sum
+        torch.cuda.synchronize()
+        if leg == "wall":
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                engine.step()
+            torch.cuda.synchronize()
+            out["wall_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n_steps
+        else:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_steps):
+                    engine.step()
+                torch.cuda.synchronize()
+        if engine.sched.fused_steps_total - before != n_steps:
+            raise AssertionError(f"{n_steps} mixed steps ran "
+                                 f"{engine.sched.fused_steps_total - before} fused forwards")
+        out[f"packed_tokens_per_step_{leg}"] = (
+            engine.sched.fused_packed_tokens_sum - packed0) / n_steps
+    while engine.has_work():
+        engine.step()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    walks = [e for e in kernels if any(k in e.key for k in WALK_KERNELS)]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_steps
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    return {**out, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / out["wall_ms_per_step"],
+            "walk_ms_per_step": sum(dev_us(e) for e in walks) / 1e3 / n_steps,
+            "walk_kernels_per_step": {e.key[:80]: e.count / n_steps for e in walks},
+            "top_kernels_ms_per_step": {e.key[:80]: dev_us(e) / 1e3 / n_steps
+                                        for e in top}}
+
+
+def serve_prefix_leg(engine, long_len: int, card: str) -> dict:
+    """Phase 7, one leg: the port's serve path with its defaults (prefix
+    caching, fused steps) and ``--tokens-per-step 512``.  After a warm-up
+    and a print of the budget :meth:`calibrate_token_budget` derives on
+    this card (set back to 512 after), through the HTTP server with the
+    launch counts set to 0, each request sent once the one before it
+    decodes: a 1024-token prefix plus a 16-token tail (a miss, chunked),
+    the prefix plus a 64-token tail (a hit, alone), two more hits (tails
+    128 and 200) together, and, while the four decode, a ``long_len``-
+    token prompt (a miss, chunked into fused steps).  The same sequence
+    on another prefix runs first as its warm-up.  Fails unless the
+    hits computed only their suffixes, the hit rate is above 0, fused
+    steps ran, every ragged forward launched one walk per layer and every
+    served token passes :func:`check_greedy`.  Then :func:`profile_fused`."""
+    from fusioninfer_tpu_torch.engine.server import EngineServer
+    from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    def texts(tenant: str):
+        """A 1023-character prefix (with BOS 1024 tokens, 8 full pages),
+        the prompts sharing it and a long prompt of ``long_len`` tokens."""
+        prefix = (f"A long shared system prompt of tenant {tenant}, the same for each "
+                  "of its requests. " * 40)[:1023]
+        tails = ["".join(chr(97 + (7 * j + n) % 26) for j in range(n))
+                 for n in PREFIX_TAILS]
+        long_prompt = (f"Quarterly report {tenant} " + "0123456789 " * 600)[:long_len - 1]
+        return [prefix + t for t in tails], long_prompt
+
+    warm_up(engine, [("w" * 300), ("Warm-up text, not shared. " * 30)[:700]])
+    calibrated = engine.calibrate_token_budget()
+    engine.set_token_budget(TOKENS_PER_STEP)
+    log(f"  calibrate_token_budget on {card}: {calibrated} tokens/step (set back to "
+        f"{TOKENS_PER_STEP} for this leg)")
+    server = EngineServer(engine, host="127.0.0.1", port=0)
+    results, errors, threads = {}, [], []
+
+    def send(label, prompt, decoding):
+        """Send once ``decoding`` streams decode (or after 10 s)."""
+        deadline = time.time() + 10
+        while engine.num_running < decoding and time.time() < deadline and not errors:
+            time.sleep(0.002)
+        threads.append(post_thread(server.port, label, prompt, results, errors))
+        return engine.num_running
+
+    def sequence(tenant):
+        shared, long_prompt = texts(tenant)
+        results.clear()
+        threads.clear()
+        send("miss", shared[0], 0)
+        send("hit", shared[1], 1)
+        send("hit 2", shared[2], 2)
+        send("hit 3", shared[3], 2)
+        decoding = send("long miss", long_prompt, 4)
+        for t in threads:
+            t.join(600)
+        if errors or len(results) != len(shared) + 1:
+            raise AssertionError(f"prefix leg: {errors or f'{len(results)} results'}")
+        return decoding
+
+    server.start()
+    try:
+        # the same sequence on another tenant's prompts first, so that the
+        # measured one finds every GEMM shape and kernel in use already
+        sequence("W")
+        n_before = {k: getattr(engine.alloc, k) for k in ("hit_tokens_total",
+                                                          "query_tokens_total")}
+        sched0 = engine.sched.snapshot()
+        preempt0 = engine.preemptions_total
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        decoding = sequence("M")
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launches()
+    order = ["miss", "hit", "hit 2", "hit 3", "long miss"]
+    sched1 = engine.sched.snapshot()
+    delta = {k: sched1[k] - sched0[k] for k in ("prefill_tokens", "fused_steps",
+                                                "weight_passes", "chunks")}
+    hit = engine.alloc.hit_tokens_total - n_before["hit_tokens_total"]
+    query = engine.alloc.query_tokens_total - n_before["query_tokens_total"]
+    walk = sum(v for k, v in launches.items() if k.startswith("ragged_paged_attention"))
+    flash_fwd = launches["flash_attention"] / engine.cfg.n_layers
+    ragged_fwd = delta["weight_passes"] - flash_fwd
+    for r in results.values():
+        if r["tokens"] != MAX_TOKENS or r["finish"] != "length":
+            raise AssertionError(f"prefix leg: {r['tokens']} tokens, finish {r['finish']!r}")
+    if engine.preemptions_total != preempt0:
+        raise AssertionError("prefix leg: a request was preempted")
+    if hit != (len(PREFIX_TAILS) - 1) * 1024 or engine.prefix_cache_hit_rate() <= 0:
+        raise AssertionError(f"prefix leg: {hit} hit tokens, expected "
+                             f"{(len(PREFIX_TAILS) - 1) * 1024}")
+    if delta["prefill_tokens"] != query - hit:
+        raise AssertionError(f"prefix leg: prefilled {delta['prefill_tokens']} tokens, "
+                             f"the uncached ones are {query - hit}")
+    if delta["fused_steps"] <= 0:
+        raise AssertionError("prefix leg: no fused step ran")
+    if walk != engine.cfg.n_layers * ragged_fwd:
+        raise AssertionError(f"prefix leg: {walk} walk launches for {ragged_fwd} ragged "
+                             f"forwards of {engine.cfg.n_layers} layers")
+    gap = check_greedy(engine, [results[k] for k in order], paged_prompt=True)
+    tok = ByteTokenizer()
+    ttft = {k: results[k]["ttft_s"] for k in order}
+    lens = {k: len(tok.encode(results[k]["prompt"])) for k in order}
+    log(f"  prefix leg in {wall:.3f} s, prompt tokens {lens}; TTFT s "
+        f"{ {k: round(v, 4) for k, v in ttft.items()} } (the long prompt sent while "
+        f"{decoding} streams decoded); hit rate {hit / query:.4f} in this leg "
+        f"({hit} of {query} tokens), {engine.prefix_cache_hit_rate():.4f} over the "
+        f"engine's life; prefilled {delta['prefill_tokens']} tokens in "
+        f"{delta['chunks']} chunks; {delta['fused_steps']} fused steps; {int(ragged_fwd)} "
+        f"ragged forwards, {walk} walk launches; launches {launches}; greedy gap {gap:.4f}")
+    prof = profile_fused(engine, 2000)
+    if list(prof["walk_kernels_per_step"].values()) != [engine.cfg.n_layers]:
+        raise AssertionError(f"fused step: walk kernels {prof['walk_kernels_per_step']}, "
+                             f"expected one kernel launched {engine.cfg.n_layers} times")
+    log(f"  fused step (4 decode rows + a chunk, {prof['packed_tokens_per_step_wall']:.0f} "
+        f"tokens packed a step): {prof['wall_ms_per_step']:.3f} ms wall, "
+        f"{prof['device_ms_per_step']:.3f} ms on the device (busy share "
+        f"{prof['device_busy_share']:.4f}); page walk {prof['walk_ms_per_step']:.4f} "
+        f"ms/step, launches per step {prof['walk_kernels_per_step']}")
+    for name, ms in prof["top_kernels_ms_per_step"].items():
+        log(f"    {ms:8.4f} ms/step  {name}")
+    return {"wall_s": wall, "launches": launches, "greedy_gap": gap, "ttft_s": ttft,
+            "prompt_tokens": lens, "calibrated_budget": calibrated,
+            "decoding_when_long_sent": decoding,
+            "hit_rate": engine.prefix_cache_hit_rate(), "hit_tokens": hit,
+            "query_tokens": query, "sched_delta": delta, "fused_profile": prof,
+            "decode_tok_s": {k: results[k]["decode_tok_s"] for k in order}}
 
 
 def kernel_row(name: str, source: str, replaces: int, launches: int, res: dict) -> dict:
@@ -1122,22 +1478,23 @@ def main() -> int:
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
     from fusioninfer_tpu_torch.ops import _build
+    from fusioninfer_tpu_torch.ops.paged_attention import engine_cluster_size
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/7] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    log(f"[1/8] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     _build.build_all()
-    log(f"[2/7] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
+    log(f"[2/8] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log(f"[3/7] kernels against their plain versions (bf16 and int8 pages, |err| <= "
+    log(f"[3/8] kernels against their plain versions (bf16 and int8 pages, |err| <= "
         f"{RTOL}·|ref| + row_tol·rms(row), row_tol {FLASH_ROW_TOL} flash / {PAGED_ROW_TOL} "
         f"page walks and decode / {WINDOW_ROW_TOL} prefill and verify; times: median "
         f"CUDA-event ms on {card})")
@@ -1167,14 +1524,39 @@ def main() -> int:
         "1024 keys in one batch, a windowed C96 suffix prefill over chunks 1-2; ps 128 / "
         "Hd 128 and ps 16 / Hd 64, bf16 and int8) within the bound, against the plain "
         "version and the folded plain partials")
+    # the single walk's cluster size that a qwen3-8b engine of 8 rows fixes
+    # (32-page tables at 4096, 16 at 2048)
+    fixed_cl = engine_cluster_size(8, KV_HEADS, 32, "cuda")
+    if fixed_cl != engine_cluster_size(8, KV_HEADS, 16, "cuda"):
+        raise AssertionError("the 2048 and 4096 engines fix different cluster sizes")
+    fused_shape = {(split, int8): check_fused_shape(gen, split, int8, fixed_cl)
+                   for int8 in (False, True) for split in (False, True)}
+    window_c512 = {pages: prims["paged_prefill_attention" + sfx]["ms"]
+                   for pages, sfx in (("bf16", ""), ("int8", "_int8"))}
+    for (split, int8), res in fused_shape.items():
+        pages = "int8" if int8 else "bf16"
+        rule = ("" if split else f" (the shape rule's CL 1: {res['ms_shape_rule']:.4f} ms)")
+        log(f"  fused shape, {'split walk' if split else 'single walk'} {pages}: "
+            f"{res['ms']:.4f} ms{rule} against the query-window kernel's "
+            f"{window_c512[pages]:.4f} ms for the C512 chunk alone and a bound of "
+            f"{res['bound_ms']:.4f} ms")
+    bits = check_fused_bits(gen, fixed_cl)
+    log(f"  {bits['rows']} decode rows bit-identical alone (T1), in T8 and inside the fused "
+        f"T520 launch (both walks, bf16 and int8, single walk at the engine's CL {fixed_cl}); "
+        f"rows whose bits the shape rule alone would move: "
+        f"{bits['rows_moved_by_shape_rule']}")
     del cases
     torch.cuda.empty_cache()
 
-    log("[4/7] serve qwen3-8b at full width, max-model-len 4096")
+    log("[4/8] serve qwen3-8b at full width, max-model-len 4096")
     cfg = get_preset("qwen3-8b")
     t0 = time.perf_counter()
-    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda"),
-                          max_batch_size=8, seed=SEED, device="cuda")
+    # phases 4-6 serve as the earlier slices did: no prefix cache, no token
+    # budget (--no-prefix-caching --no-token-budget); phase 7 the defaults
+    legacy = {"enable_prefix_caching": False}
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda",
+                                                 prefix_caching=False),
+                          max_batch_size=8, seed=SEED, device="cuda", **legacy)
     torch.cuda.synchronize()
     log(f"  weights + pool ready in {time.perf_counter() - t0:.1f} s "
         f"(kv_splits {engine.kv_splits}, {engine.cache_cfg.n_pages} pages)")
@@ -1188,22 +1570,25 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[5/7] single page walk: same weights, max-model-len 2048")
-    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda"),
-                          max_batch_size=8, params=params, device="cuda")
+    log("[5/8] single page walk: same weights, max-model-len 2048")
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda",
+                                                 prefix_caching=False),
+                          max_batch_size=8, params=params, device="cuda", **legacy)
     if engine.kv_splits != 0:
         raise AssertionError(f"expected the single walk at 2048, got kv_splits {engine.kv_splits}")
     prompts5 = prompts[:2] + [prompts[2][:600], prompts[3][:1000]]
     serve5 = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention"))
     prof5 = profile_decode(engine)
     log_profile(prof5, card)
+    check_one_walk_per_layer(prof5, cfg.n_layers)
     del engine
     torch.cuda.empty_cache()
 
-    log("[6/7] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
+    log("[6/8] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
         "then 2048")
-    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda", "int8"),
-                          max_batch_size=8, params=params, device="cuda")
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda", "int8",
+                                                 prefix_caching=False),
+                          max_batch_size=8, params=params, device="cuda", **legacy)
     if engine.kv_splits == 0 or engine.cache["k"].dtype != torch.int8:
         raise AssertionError("expected int8 pages and the split walk at 4096")
     serve6 = serve_leg(engine, prompts, ("flash_attention",
@@ -1213,24 +1598,48 @@ def main() -> int:
     check_one_walk_per_layer(prof6, cfg.n_layers)
     del engine
     torch.cuda.empty_cache()
-    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda", "int8"),
-                          max_batch_size=8, params=params, device="cuda")
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda", "int8",
+                                                 prefix_caching=False),
+                          max_batch_size=8, params=params, device="cuda", **legacy)
     serve6s = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention_int8"))
+    del engine
+    torch.cuda.empty_cache()
+
+    log(f"[7/8] prefix caching, chunked prefill and fused steps (the serve defaults, "
+        f"--tokens-per-step {TOKENS_PER_STEP}): same weights, bf16 pages at 4096 (split "
+        "walk) and 2048 (single walk), int8 pages at 2048")
+    serve7 = {}
+    for max_len, kv_dtype, long_len in ((4096, "model", 3000), (2048, "model", 1800),
+                                        (2048, "int8", 1800)):
+        tag = f"{'int8' if kv_dtype == 'int8' else 'bf16'}_{max_len}"
+        engine = NativeEngine(cfg, auto_cache_config(cfg, 128, max_len, 8, "cuda", kv_dtype),
+                              max_batch_size=8, params=params, device="cuda",
+                              token_budget=TOKENS_PER_STEP)
+        log(f"  {tag}: {engine.cache_cfg.n_pages} pages, kv_splits {engine.kv_splits}, "
+            f"single-walk cluster {engine.walk_cluster}")
+        if not engine.prefix_caching or engine.walk_cluster not in (None, fixed_cl):
+            raise AssertionError(f"{tag}: prefix caching off or cluster {engine.walk_cluster}")
+        serve7[tag] = serve_prefix_leg(engine, long_len, card)
+        del engine
+        torch.cuda.empty_cache()
 
     pa_py = "paged_attention.py"
+    legs = [serve4, serve5, serve6, serve6s, *serve7.values()]
+
+    def served(name):  # launches over every serve leg
+        return sum(leg["launches"][name] for leg in legs)
+
     kernels = [
         kernel_row("flash_attention", "flash_attention.cu", "flash_attention.py:150",
-                   serve4["launches"]["flash_attention"], flash[0]),
+                   served("flash_attention"), flash[0]),
         kernel_row("ragged_paged_attention", "paged_attention.cu", f"{pa_py}:1250",
-                   serve5["launches"]["ragged_paged_attention"], walks[(False, False)]),
+                   served("ragged_paged_attention"), walks[(False, False)]),
         kernel_row("ragged_paged_attention_kvsplit", "paged_attention.cu", f"{pa_py}:1505",
-                   serve4["launches"]["ragged_paged_attention_kvsplit"],
-                   walks[(True, False)]),
+                   served("ragged_paged_attention_kvsplit"), walks[(True, False)]),
         kernel_row("ragged_paged_attention_int8", "paged_attention.cu", f"{pa_py}:1250",
-                   serve6s["launches"]["ragged_paged_attention_int8"], walks[(False, True)]),
+                   served("ragged_paged_attention_int8"), walks[(False, True)]),
         kernel_row("ragged_paged_attention_kvsplit_int8", "paged_attention.cu",
-                   f"{pa_py}:1505",
-                   serve6["launches"]["ragged_paged_attention_kvsplit_int8"],
+                   f"{pa_py}:1505", served("ragged_paged_attention_kvsplit_int8"),
                    walks[(True, True)]),
     ]
     for name, source, line in [("paged_decode_attention", "paged_attention.cu", 474),
@@ -1257,8 +1666,12 @@ def main() -> int:
                    "serve_2048": {**serve5, "decode_profile": prof5},
                    "serve_int8_4096": {**serve6, "decode_profile": prof6},
                    "serve_int8_2048": serve6s,
+                   "fused_shape": {f"{'split' if sp else 'single'}{'_int8' if q8 else ''}": r
+                                   for (sp, q8), r in fused_shape.items()},
+                   "fused_bits": bits, "fixed_cluster": fixed_cl,
+                   "prefix_legs": serve7,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[7/7] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[8/8] done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

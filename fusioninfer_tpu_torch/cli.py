@@ -2,6 +2,8 @@
 
     python -m fusioninfer_tpu_torch.cli engine serve qwen3-8b \\
         [--device cuda] [--max-model-len 4096] [--kv-cache-dtype int8] \\
+        [--no-prefix-caching] [--prefill-chunk-size N] \\
+        [--tokens-per-step N | --no-token-budget] [--no-fused-step] \\
         [--port 8000] [--seed 0]
 
 ``engine serve`` runs on the card unless ``--device cpu`` is given; with
@@ -34,6 +36,32 @@ def build_parser() -> argparse.ArgumentParser:
                        help="int8: quantized KV pages with per-token f32 "
                             "scales (Hd + 4 bytes per token and head "
                             "instead of 2·Hd); auto keeps the model dtype")
+    serve.add_argument("--no-prefix-caching", action="store_true",
+                       help="disable automatic prefix caching (KV page reuse)")
+    serve.add_argument("--prefill-chunk-size", type=int, default=0,
+                       help="chunked prefill: prompts longer than this many "
+                            "tokens prefill in bounded chunks interleaved "
+                            "with decode steps (0 = no threshold of its "
+                            "own); when set it also seeds the per-step "
+                            "token budget")
+    serve.add_argument("--tokens-per-step", type=int, default=0,
+                       help="token-budgeted scheduling: each engine step "
+                            "processes at most this many tokens, the "
+                            "running batch's decode tokens first, the "
+                            "remainder as adaptively-sized prefill chunks; "
+                            "0 = derive it from a forward timed on the "
+                            "device at startup")
+    serve.add_argument("--no-token-budget", action="store_true",
+                       help="skip the startup-derived token budget "
+                            "(monolithic prefill); an explicit "
+                            "--prefill-chunk-size still seeds a budget")
+    serve.add_argument("--fused-step", action=argparse.BooleanOptionalAction,
+                       default=True,
+                       help="run each step's decode rows and budgeted "
+                            "prefill-chunk rows in ONE forward, so the "
+                            "weights stream from memory once per step "
+                            "(--no-fused-step: a chunk forward, then a "
+                            "decode forward)")
     serve.add_argument("--seed", type=int, default=0,
                        help="seed of the random weights")
     serve.add_argument("--host", default="0.0.0.0")

@@ -1,18 +1,35 @@
 """Continuous-batching inference engine (port of the serve path of
 ``fusioninfer_tpu/engine/engine.py``).
 
-Admits requests into a running batch (same-bucket fresh prompts prefill
-as one batch), then advances every running sequence one token per
-:meth:`NativeEngine.step` with one batched decode step over the paged
-pool.  Under KV pressure the youngest sequence (latest arrival) is
-preempted: its pages are released and the request re-queued with its
-tokens so far, to be re-prefilled.
+Admits requests into a running batch, then advances every running
+sequence one token per :meth:`NativeEngine.step`.  As in the JAX engine:
 
-This port serves the configuration ``engine serve`` runs by default
-without prefix caching: monolithic prefill, one decode step per engine
-step, bf16 KV pages.  Prefix caching, chunked prefill, fused steps,
-speculative decoding, LoRA, guided decoding and the PD/KV fabric are
-later slices and are absent here, not switched off.
+* **Prefix caching** (on by default): full prompt pages are
+  content-addressed (:mod:`engine.prefix_cache`); a request reuses the
+  longest cached chain and computes only its suffix.  In one admission
+  round only the first of several identical prompts prefills; the others
+  defer a round and hit its pages.
+* **Token budget**: each step may process ``token_budget`` tokens, the
+  running batch's decode tokens first; the remainder buys prefill.  A
+  prompt (or cache-miss suffix) longer than the chunk size, or over the
+  step's remainder, prefills in budgeted chunks across steps while the
+  batch keeps decoding (:class:`_PrefillingState`).
+* **One ragged forward**: every forward that reads paged context (decode
+  rows, cache-hit suffixes, chunk advances) packs a
+  :class:`engine.fused.RaggedBatch` and runs
+  :func:`model_runner.fused_step`; with ``fused_step`` on, a step that
+  has both decode rows and chunk rows runs them in ONE forward.  Fresh
+  prompts that need no chunking prefill through flash attention, same-
+  bucket ones as one batch.
+* **Preemption** under KV pressure takes the youngest sequence, running
+  or mid-prefill, never one older than the work displacing it.  With
+  prefix caching its written pages are parked as cached content first,
+  so its re-admission recomputes at most one page.
+
+Left out, and absent rather than switched off: speculative decoding,
+fused sampling, decode bursts, LoRA, guided decoding, SLO tiers and
+priorities (the wait queue orders by arrival), deadlines, the host KV
+tier and the PD/KV fabric.
 
 Concurrency: one engine-loop thread owns all scheduling state and is the
 only caller of :meth:`step`; other threads enter only through the locked
@@ -32,28 +49,38 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fusioninfer_tpu_torch.engine.fused import pack_ragged_batch, pow2_rows
 from fusioninfer_tpu_torch.engine.kv_cache import (
     CacheConfig,
     PageAllocator,
     init_kv_cache,
 )
 from fusioninfer_tpu_torch.engine.model_runner import (
-    decode_step,
+    fused_step,
     pick_bucket,
     prefill,
     prefill_buckets,
 )
+from fusioninfer_tpu_torch.engine.prefix_cache import PrefixCachingAllocator
 from fusioninfer_tpu_torch.engine.sampler import (
     SamplingParams,
     apply_penalties,
     sample,
 )
-from fusioninfer_tpu_torch.engine.sched import TokenBudget
+from fusioninfer_tpu_torch.engine.sched import TokenBudget, derive_token_budget
 from fusioninfer_tpu_torch.models.config import ModelConfig
 from fusioninfer_tpu_torch.models.transformer import init_params
-from fusioninfer_tpu_torch.ops.paged_attention import pick_kv_splits
+from fusioninfer_tpu_torch.ops.paged_attention import (
+    engine_cluster_size,
+    pick_kv_splits,
+)
+from fusioninfer_tpu_torch.utils.blockhash import block_hashes
 
 logger = logging.getLogger("fusioninfer.torch.engine")
+
+# prefix-cache hits whose un-cached suffix is at most this many tokens
+# batch through ONE ragged forward
+_SUFFIX_BATCH_WINDOW = 128
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,8 +102,13 @@ class Request:
     # < 0 means "not stamped yet": add_request stamps it on the engine clock
     arrival_time: float = -1.0
     # set on preemption: prompt + tokens generated so far, re-prefilled on
-    # re-admission so the stream continues where it stopped
+    # re-admission so the stream continues where it stopped (with prefix
+    # caching the re-prefill hits the pages the preemption parked)
     resume_tokens: Optional[list[int]] = None
+    # set by every preemption (mid-decode and mid-prefill, where
+    # resume_tokens stays None: nothing was emitted yet); cleared when the
+    # re-admission is counted in the preempt-resume ledger
+    was_preempted: bool = False
 
 
 @dataclass
@@ -99,6 +131,18 @@ class _SeqState:
     @property
     def n_generated(self) -> int:
         return len(self.tokens) - self.n_prompt
+
+
+@dataclass
+class _PrefillingState:
+    """A prompt mid-chunked-prefill: pages are allocated, ``pos`` tokens
+    are already in the KV pages, no batch slot yet (one is reserved:
+    admission counts prefilling toward slot pressure)."""
+
+    request: Request
+    prefix: list[int]  # full token prefix to write (prompt, or resume tokens)
+    resumed: bool
+    pos: int  # next global position to write (starts at the reused length)
 
 
 class _WaitQueue:
@@ -138,14 +182,29 @@ class NativeEngine:
     def __init__(self, cfg: ModelConfig,
                  cache_cfg: Optional[CacheConfig] = None,
                  max_batch_size: int = 8, params: Optional[dict] = None,
-                 seed: int = 0, device=None, kv_splits: Optional[int] = None):
+                 seed: int = 0, device=None, kv_splits: Optional[int] = None,
+                 enable_prefix_caching: bool = True,
+                 prefill_chunk_size: Optional[int] = None,
+                 token_budget: Optional[int] = None,
+                 fused_step: bool = True):
         """``device``: where weights, pool and every forward live; None
         means ``cuda`` (raises without CUDA).  ``params``: the port's
         parameter dict (e.g. from :func:`convert.params_from_jax`), moved
         to ``device``; None draws random weights from ``seed``.
-        ``kv_splits``: decode's split-walk fan-out; None picks it once from
+        ``kv_splits``: the split-walk fan-out; None picks it once from
         the static cache config (:func:`ops.paged_attention.pick_kv_splits`),
-        0 forces the single walk."""
+        0 forces the single walk.
+
+        ``enable_prefix_caching``: content-address full prompt pages and
+        reuse the longest cached prefix across requests.
+        ``prefill_chunk_size``: a prompt (or cache-miss suffix) longer than
+        this prefills in budgeted chunks across steps; without
+        ``token_budget`` it also seeds the budget.  ``token_budget``:
+        tokens one :meth:`step` may process, decode charged first;
+        None with no chunk size means monolithic prefill.
+        ``fused_step``: a step with both decode rows and prefill chunks
+        runs them in one forward; output streams are the same either
+        way."""
         self.cfg = cfg.validate()
         self.cache_cfg = (cache_cfg or CacheConfig()).validate()
         self.device = resolve_device(device)
@@ -158,11 +217,22 @@ class NativeEngine:
             params = _to_device(params, self.device)
         self.params = params
         self.cache = init_kv_cache(cfg, self.cache_cfg, self.device)
-        self.alloc = PageAllocator(self.cache_cfg)
+        self.prefix_caching = enable_prefix_caching
+        self.alloc = (PrefixCachingAllocator(self.cache_cfg)
+                      if enable_prefix_caching else PageAllocator(self.cache_cfg))
         self.buckets = prefill_buckets(self.cache_cfg.max_len)
-        self.kv_splits = (pick_kv_splits(self.cache_cfg.max_pages_per_seq,
-                                         self.cache_cfg.page_size)
+        mp = self.cache_cfg.max_pages_per_seq
+        self.kv_splits = (pick_kv_splits(mp, self.cache_cfg.page_size)
                           if kv_splits is None else kv_splits)
+        # the single walk's cluster size, fixed once from static shapes so
+        # that a row's bits never depend on what shares its launch
+        self.walk_cluster = (engine_cluster_size(max_batch_size, cfg.n_kv_heads,
+                                                 mp, self.device)
+                             if self.kv_splits == 0 else None)
+        # descriptor rows and the chunk lm_head group are pinned per engine,
+        # as in the JAX engine: R = pow2(2B), NC = pow2(B)
+        self._ragged_rows = pow2_rows(2 * max_batch_size)
+        self._ragged_chunk_rows = pow2_rows(max_batch_size)
         self._seed_counter = itertools.count(1)
         self._base_seed = seed
         V = cfg.vocab_size
@@ -175,10 +245,26 @@ class NativeEngine:
                                      device=self.device)
         self.waiting = _WaitQueue()
         self.running: dict[int, _SeqState] = {}  # slot -> state
+        self.prefilling: list[_PrefillingState] = []  # FCFS chunk queue
+        # request_id -> the prompt's block-hash chain, computed once at
+        # admission and consumed by match_prefix and register_blocks
+        self._admission_chains: dict[str, list] = {}
         self._free_slots = list(reversed(range(max_batch_size)))
         self._cancelled: set[str] = set()
         self._lock = threading.Lock()
-        self.sched = TokenBudget()
+        if prefill_chunk_size is not None and prefill_chunk_size < 1:
+            raise ValueError("prefill_chunk_size must be >= 1")
+        if token_budget is not None and token_budget < 1:
+            raise ValueError("token_budget must be >= 1")
+        if token_budget is None and prefill_chunk_size is not None:
+            token_budget = prefill_chunk_size
+        self.prefill_chunk = prefill_chunk_size
+        self.sched = TokenBudget(token_budget)
+        if self.prefill_chunk is None and token_budget is not None:
+            # the budget is the chunking threshold
+            self.prefill_chunk = token_budget
+        self._step_prefill_left = 0  # set by step(); spent by _admit
+        self.fused_step_enabled = fused_step
         # counters (stats / the server's /health)
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
@@ -188,6 +274,45 @@ class NativeEngine:
         self.cancelled_total = 0
 
     # -- public API ----------------------------------------------------------
+
+    @property
+    def token_budget(self) -> Optional[int]:
+        return self.sched.tokens_per_step
+
+    def set_token_budget(self, tokens_per_step: int) -> None:
+        """Install (or retune) the per-step token budget; enables budgeted
+        chunked prefill on an engine built without one."""
+        if tokens_per_step < 1:
+            raise ValueError("token_budget must be >= 1")
+        self.sched.tokens_per_step = tokens_per_step
+        if self.prefill_chunk is None:
+            self.prefill_chunk = tokens_per_step
+
+    def calibrate_token_budget(self, target_step_s: float = 0.05,
+                               floor: int = 32, cap: int = 4096) -> int:
+        """Derive the token budget from a MEASURED forward: time one
+        suffix-prefill forward of up to 256 tokens on this engine's path
+        (the ragged walk, as serving runs it), convert tokens/second into
+        the tokens/step that keep a step under ``target_step_s``, and
+        install it.  The probe writes into scratch pages released before
+        returning (pages are overwritten before they are read)."""
+        n = min(256, self.buckets[-1],
+                self.cache_cfg.max_pages_per_seq * self.cache_cfg.page_size)
+        probe = Request("__budget_probe__", [1] * n)
+        self.alloc.allocate(probe.request_id, n)
+        try:
+            self._suffix_forward(probe, probe.prompt_tokens, 0, n)  # first use
+            self._sync()
+            t0 = time.perf_counter()
+            self._suffix_forward(probe, probe.prompt_tokens, 0, n)
+            self._sync()
+            dt = time.perf_counter() - t0
+        finally:
+            self.alloc.release(probe.request_id)
+        budget = derive_token_budget(dt / n, target_step_s=target_step_s,
+                                     floor=floor, cap=cap)
+        self.set_token_budget(budget)
+        return budget
 
     def add_request(self, request: Request) -> None:
         if request.params.max_tokens < 1:
@@ -220,15 +345,37 @@ class NativeEngine:
     def num_running(self) -> int:
         return len(self.running)
 
+    @property
+    def num_prefilling(self) -> int:
+        return len(self.prefilling)
+
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running)
+        return bool(self.waiting or self.running or self.prefilling)
+
+    def kv_cache_usage(self) -> float:
+        return self.alloc.utilization()
+
+    def prefix_cache_hit_rate(self) -> float:
+        if not self.prefix_caching:
+            return 0.0
+        return self.alloc.prefix_hit_rate()
 
     def step(self) -> list[StepOutput]:
-        """Admit + prefill new work, then one batched decode pass."""
+        """Admit new work, then advance chunked prefills and decode the
+        running batch: one fused forward when both exist and ``fused_step``
+        is on, else a chunk forward and a decode forward."""
         self._process_cancellations()
-        self.sched.begin_step()
+        # the budget is charged with the running batch's decode tokens
+        # first; _admit and the chunk advance spend the remainder
+        self._step_prefill_left = self.sched.begin_step(
+            sum(1 for st in self.running.values()
+                if st.n_generated < st.request.params.max_tokens))
         outputs = self._admit()
-        outputs += self._decode()
+        if self._use_fused_step():
+            outputs += self._fused_step()
+        else:
+            outputs += self._advance_prefilling()
+            outputs += self._decode()
         return outputs
 
     # -- scheduling ----------------------------------------------------------
@@ -238,19 +385,46 @@ class NativeEngine:
             cancelled, self._cancelled = self._cancelled, set()
             if not cancelled:
                 return
+            for rid in cancelled:
+                self._admission_chains.pop(rid, None)
             self.cancelled_total += self.waiting.remove_ids(cancelled)
         for state in [s for s in self.running.values()
                       if s.request.request_id in cancelled]:
             self._finish(state, outcome="cancelled")
+        kept = []
+        for st in self.prefilling:
+            if st.request.request_id in cancelled:
+                self.alloc.release(st.request.request_id)
+                self.cancelled_total += 1
+                logger.info("cancelled %s mid-prefill", st.request.request_id)
+            else:
+                kept.append(st)
+        self.prefilling = kept
+
+    def _avail_slots(self) -> int:
+        """Free batch slots minus one reserved per mid-prefill sequence
+        (every chunked prefill can activate on completion)."""
+        return len(self._free_slots) - len(self.prefilling)
+
+    def _admission_chain(self, prefix: list[int]) -> Optional[list]:
+        """The prompt's full block-hash chain, computed once per admission
+        (None without prefix caching)."""
+        if not self.prefix_caching:
+            return None
+        return block_hashes(list(prefix), self.cache_cfg.page_size)
 
     def _admit(self) -> list[StepOutput]:
         """Admit waiting requests in arrival order while slots and pages
-        allow, then prefill same-bucket fresh prompts as one batch each
-        (groups of power-of-two size, as the JAX engine groups them)."""
+        allow (reuse-aware with prefix caching), then route each: a long
+        prompt or cache-miss suffix, or one over the step's budget, to the
+        chunked queue; a short cache-hit suffix into one batched ragged
+        forward with the other hits; a fresh prompt into a flash prefill
+        of its padding bucket.  Only the first of identical prompts
+        prefills in a round; duplicates defer a round and hit its pages."""
         outputs: list[StepOutput] = []
         pending: list[tuple[Request, list[int], bool]] = []
         while True:
-            if len(self._free_slots) <= len(pending):
+            if self._avail_slots() <= len(pending):
                 with self._lock:
                     head = self.waiting.peek().arrival_time if self.waiting else None
                 if head is None or not self._preempt_youngest(
@@ -262,8 +436,9 @@ class NativeEngine:
                     break
                 request = self.waiting.pop()
             prefix = request.resume_tokens or request.prompt_tokens
+            chain = self._admission_chain(prefix)
             blocked = False
-            while not self.alloc.can_allocate(len(prefix) + 1):
+            while not self.alloc.can_admit(prefix, 1, chain=chain):
                 if not self._preempt_youngest(exclude_slot=-1,
                                               than_arrival=request.arrival_time):
                     with self._lock:
@@ -274,58 +449,166 @@ class NativeEngine:
                 break
             resumed = request.resume_tokens is not None
             request.resume_tokens = None
+            if chain is not None:
+                self._admission_chains[request.request_id] = chain
             pending.append((request, prefix, resumed))
 
-        fresh: list[tuple[Request, list[int], bool]] = []
-        for idx, (request, prefix, resumed) in enumerate(pending):
-            try:
-                self.alloc.allocate(request.request_id, len(prefix) + 1)
-            except MemoryError:
-                # capacity raced ahead of the pop-time check: back-pressure,
-                # requeue the rest in order and stop admitting
-                self.alloc.release(request.request_id)
-                self._requeue(pending[idx:])
-                break
-            fresh.append((request, prefix, resumed))
+        while pending:
+            fresh: list[tuple[Request, list[int], bool]] = []
+            short_hits: list[tuple[Request, list[int], bool, int]] = []
+            deferred_idx: list[int] = []
+            seen_prompts: set = set()
+            stopped_at: Optional[int] = None
+            for idx, (request, prefix, resumed) in enumerate(pending):
+                key = tuple(prefix)
+                if self.prefix_caching and key in seen_prompts:
+                    deferred_idx.append(idx)
+                    continue
+                rid = request.request_id
+                try:
+                    reused = (self.alloc.match_prefix(
+                        rid, prefix, chain=self._admission_chains.get(rid))
+                        if self.prefix_caching else 0)
+                    self.alloc.allocate(rid, len(prefix) + 1)
+                except MemoryError:
+                    # capacity raced ahead of the pop-time check: back-
+                    # pressure; requeue the rest in order and stop
+                    self.alloc.release(rid)
+                    stopped_at = idx
+                    break
+                if resumed or request.was_preempted:
+                    request.was_preempted = False
+                    self.sched.preempt_resumes_total += 1
+                    self.sched.preempt_resume_reused_tokens_total += reused
+                suffix_len = len(prefix) - reused
+                over_budget = (self.sched.tokens_per_step is not None
+                               and suffix_len > self._step_prefill_left)
+                if (self.prefill_chunk is not None
+                        and (suffix_len > self.prefill_chunk or over_budget)):
+                    if suffix_len <= self.prefill_chunk:
+                        self.sched.admission_deferred_total += 1
+                    if not reused:
+                        seen_prompts.add(key)
+                    self.prefilling.append(_PrefillingState(
+                        request=request, prefix=prefix, resumed=resumed,
+                        pos=reused))
+                elif reused:
+                    self._reserve_prefill(suffix_len)
+                    if suffix_len <= _SUFFIX_BATCH_WINDOW:
+                        short_hits.append((request, prefix, resumed, reused))
+                        continue
+                    outputs.extend(self._prefill_suffix_batch(
+                        [(request, prefix, resumed, reused)]))
+                else:
+                    self._reserve_prefill(suffix_len)
+                    seen_prompts.add(key)
+                    fresh.append((request, prefix, resumed))
 
-        by_bucket: dict[int, list] = {}
-        for item in fresh:
-            by_bucket.setdefault(pick_bucket(self.buckets, len(item[1])), []).append(item)
-        for bucket in sorted(by_bucket):
-            items = by_bucket[bucket]
-            while items:
-                n = 1 << (len(items).bit_length() - 1)
-                group, items = items[:n], items[n:]
-                outputs.extend(self._prefill_group(bucket, group))
+            if stopped_at is not None:
+                keep = sorted(set(deferred_idx)
+                              | set(range(stopped_at, len(pending))))
+                self._requeue_front([pending[i] for i in keep])
+                deferred_idx = []
+
+            by_bucket: dict[int, list] = {}
+            for item in fresh:
+                by_bucket.setdefault(
+                    pick_bucket(self.buckets, len(item[1])), []).append(item)
+            for bucket in sorted(by_bucket):
+                items = by_bucket[bucket]
+                while items:
+                    n = 1 << (len(items).bit_length() - 1)
+                    group, items = items[:n], items[n:]
+                    outputs.extend(self._prefill_fresh_group(bucket, group))
+            if short_hits:
+                outputs.extend(self._prefill_suffix_batch(short_hits))
+            pending = [pending[i] for i in deferred_idx]
         return outputs
 
-    def _requeue(self, items) -> None:
+    def _requeue_front(self, items) -> None:
+        """Return un-admitted requests to the wait queue (their arrival
+        puts them back at the head), restoring resume state."""
         with self._lock:
             for request, prefix, resumed in items:
                 if resumed:
                     request.resume_tokens = list(prefix)
                 self.waiting.push(request)
+                self._admission_chains.pop(request.request_id, None)
+
+    def _fail_admission(self, request: Request, e: Exception) -> StepOutput:
+        """Never lose a popped request silently: fail it to the client."""
+        self.errors_total += 1
+        self._admission_chains.pop(request.request_id, None)
+        return StepOutput(request_id=request.request_id, token=0, finished=True,
+                          finish_reason=f"error:{e}")
 
     def _preempt_youngest(self, exclude_slot: int,
                           than_arrival: Optional[float] = None) -> bool:
-        """Release the youngest running sequence (≠ exclude) back to
-        waiting.  With ``than_arrival`` only a victim that arrived strictly
-        later than the displacing work is taken."""
-        cands = [s for s in self.running if s != exclude_slot]
-        if not cands:
+        """Release the youngest sequence (≠ exclude), running or
+        mid-prefill, back to waiting; a mid-prefill one wins a tie.  With
+        ``than_arrival`` only a victim that arrived strictly later than
+        the displacing work is taken."""
+        run = [s for s in self.running if s != exclude_slot]
+        slot = (max(run, key=lambda s: self.running[s].request.arrival_time)
+                if run else None)
+        pf_idx = (max(range(len(self.prefilling)),
+                      key=lambda i: self.prefilling[i].request.arrival_time)
+                  if self.prefilling else None)
+        pick_prefilling = pf_idx is not None and (
+            slot is None
+            or self.prefilling[pf_idx].request.arrival_time
+            >= self.running[slot].request.arrival_time)
+        victim = (self.prefilling[pf_idx].request if pick_prefilling
+                  else self.running[slot].request if slot is not None else None)
+        if victim is None or (than_arrival is not None
+                              and victim.arrival_time <= than_arrival):
             return False
-        slot = max(cands, key=lambda s: self.running[s].request.arrival_time)
-        if (than_arrival is not None
-                and self.running[slot].request.arrival_time <= than_arrival):
-            return False
-        self._preempt_slot(slot)
+        if pick_prefilling:
+            st = self.prefilling.pop(pf_idx)
+            # park the chunk progress: re-admission picks it back up
+            self._park_preempted(st.request, st.prefix, st.pos)
+            self.alloc.release(st.request.request_id)
+            self.preemptions_total += 1
+            st.request.was_preempted = True
+            if st.resumed:
+                st.request.resume_tokens = list(st.prefix)
+            with self._lock:
+                self.waiting.push(st.request)
+            logger.info("preempted %s mid-prefill for KV capacity",
+                        st.request.request_id)
+            return True
+        self._preempt_running_slot(slot)
         return True
 
-    def _preempt_slot(self, slot: int) -> None:
+    def _park_preempted(self, request: Request, tokens: list[int],
+                        written: int) -> int:
+        """KV-preserving preemption: before a victim's pages are
+        released, register its complete written pages as content-
+        addressed blocks (the chain its resume looks up), so they survive
+        the release as evictable content and the resume recomputes at
+        most the last partial page.  ``written`` counts the positions
+        whose KV is in the pages (a running victim's last sampled token
+        is not yet).  Returns the pages parked."""
+        if not self.prefix_caching or self.cfg.sliding_window is not None:
+            return 0
+        ps = self.cache_cfg.page_size
+        pages = self.alloc.pages_of(request.request_id)
+        usable = min(written // ps, len(pages))
+        if usable <= 0:
+            return 0
+        chain = block_hashes(list(tokens), ps)[:usable]
+        self.alloc.register_blocks(request.request_id, list(tokens), chain=chain)
+        self.sched.preempt_parks_total += 1
+        self.sched.preempt_parked_pages_total += usable
+        return usable
+
+    def _preempt_running_slot(self, slot: int) -> None:
         state = self.running.pop(slot)
+        self._park_preempted(state.request, state.tokens, len(state.tokens) - 1)
         self.alloc.release(state.request.request_id)
         self._free_slots.append(slot)
         self.preemptions_total += 1
+        state.request.was_preempted = True
         state.request.resume_tokens = list(state.tokens)
         with self._lock:
             self.waiting.push(state.request)
@@ -337,9 +620,11 @@ class NativeEngine:
         # unseeded: stable per engine seed + admission order
         return (self._base_seed * 1_000_003 + next(self._seed_counter)) & 0x7FFFFFFF
 
-    def _prefill_group(self, bucket: int, items) -> list[StepOutput]:
-        """One batched prefill forward for same-bucket prompts; a failed
-        forward fails (and releases) the whole group."""
+    # -- forwards ------------------------------------------------------------
+
+    def _prefill_fresh_group(self, bucket: int, items) -> list[StepOutput]:
+        """One batched flash-prefill forward for same-bucket fresh prompts;
+        a failed forward fails (and releases) the whole group."""
         B = len(items)
         mp = self.cache_cfg.max_pages_per_seq
         padded = np.zeros((B, bucket), np.int64)
@@ -355,25 +640,188 @@ class NativeEngine:
                              self._tensor(rows))
         except (RuntimeError, ValueError) as e:
             logger.exception("batched prefill of %d requests failed", B)
-            outputs = []
-            for request, _, _ in items:
-                self.alloc.release(request.request_id)
-                outputs.append(self._fail(request, e))
-            return outputs
+            return self._fail_group([r for r, _, _ in items], e)
         self.sched.charge_weight_pass()
         self.sched.charge_prefill(sum(len(p) for _, p, _ in items))
-        return self._activate_group(items, logits)
+        return self._activate_group(
+            [(request, prefix, resumed, logits[i: i + 1])
+             for i, (request, prefix, resumed) in enumerate(items)])
 
-    def _activate_group(self, items, logits: torch.Tensor) -> list[StepOutput]:
-        """Sample each prompt's first token with its full sampling
-        semantics, claim a slot, install the slot's penalty rows, emit."""
+    def _ragged_forward(self, packed):
+        """Dispatch ONE flat ragged forward and charge its weight pass →
+        ``(logits [B, W, V], chunk_logits [NC, V])``.  Every engine forward
+        that reads paged context (decode rows, chunk advances, cache-hit
+        suffixes, mixed steps) lands here."""
+        arrays = (packed.tokens, packed.row_starts, packed.q_begins,
+                  packed.q_lens, packed.page_tables, packed.sel, packed.chunk_sel)
+        logits, chunk_logits = fused_step(
+            self.cfg, self.cache_cfg, self.params, self.cache,
+            *self._upload_int32(arrays), kv_splits=self.kv_splits,
+            cluster=self.walk_cluster, n_tokens=packed.packed_tokens)
+        self.sched.charge_weight_pass()
+        return logits, chunk_logits
+
+    def _batched_window_forward(self, entries) -> torch.Tensor:
+        """ONE ragged forward for per-sequence token windows, ``entries``
+        ``[(request, window_tokens, start)]`` → last-token logits [B, V];
+        raises on a failed forward (the caller fails its group)."""
+        mp = self.cache_cfg.max_pages_per_seq
+        chunk_entries = [
+            (toks, start, self.alloc.page_table_row(request.request_id), 0)
+            for request, toks, start in entries]
+        packed = pack_ragged_batch(
+            np.zeros((0, 1), np.int32), np.zeros((0,), np.int32),
+            np.zeros((0,), np.int32), np.zeros((0, mp), np.int32),
+            np.zeros((0,), np.int32), chunk_entries, self.cache_cfg.trash_page,
+            rows=self._ragged_rows, chunk_rows=self._ragged_chunk_rows)
+        return self._ragged_forward(packed)[1][: len(entries)]
+
+    def _suffix_forward(self, request: Request, prefix: list[int],
+                        start: int, length: int) -> torch.Tensor:
+        """One forward writing ``prefix[start:start+length]`` at positions
+        [start, start+length) → last-token logits [1, V]: the one ragged
+        dispatch as a one-chunk pack, so a sequence's K/V bits are the same
+        whether its chunk ran alone, batched or beside decode rows."""
+        return self._batched_window_forward(
+            [(request, prefix[start: start + length], start)])[0][None]
+
+    def _prefill_suffix_batch(self, items) -> list[StepOutput]:
+        """One ragged forward for cache-hit suffixes ``[(request, prefix,
+        resumed, reused)]``, each a window of its un-cached tail at its own
+        start; a failed forward fails the whole group."""
+        try:
+            logits = self._batched_window_forward(
+                [(request, prefix[reused:], reused)
+                 for request, prefix, _, reused in items])
+        except (RuntimeError, ValueError) as e:
+            logger.exception("suffix prefill of %d requests failed", len(items))
+            return self._fail_group([r for r, _, _, _ in items], e)
+        self.sched.charge_prefill(
+            sum(len(prefix) - reused for _, prefix, _, reused in items))
+        return self._activate_group(
+            [(request, prefix, resumed, logits[i][None])
+             for i, (request, prefix, resumed, _) in enumerate(items)])
+
+    def _fail_group(self, requests, e: Exception) -> list[StepOutput]:
+        outputs = []
+        for request in requests:
+            self.alloc.release(request.request_id)
+            outputs.append(self._fail_admission(request, e))
+        return outputs
+
+    # -- chunked prefill -----------------------------------------------------
+
+    def _chunk_budget(self) -> int:
+        """Prefill tokens this step may still spend: what is left after
+        decode's charge and admission's spending, floored at one token per
+        in-flight prefill so a saturated decode batch never starves one."""
+        return max(self._step_prefill_left,
+                   min(len(self.prefilling), self.max_batch_size))
+
+    def _reserve_prefill(self, n: int) -> None:
+        """Claim ``n`` tokens of this STEP's prefill remainder at routing
+        time (the lifetime ledger is charged after the forward)."""
+        self._step_prefill_left = max(0, self._step_prefill_left - n)
+
+    def _spend_prefill(self, n: int, chunks: int = 0) -> None:
+        self._reserve_prefill(n)
+        self.sched.charge_prefill(n, chunks=chunks)
+
+    def _chunk_plan(self) -> tuple[list[_PrefillingState], list[int]]:
+        """The mid-prefill sequences this step advances and each one's
+        chunk: the step's prefill budget split evenly, at least 1 each."""
+        take = list(self.prefilling[: self.max_batch_size])
+        share = max(1, self._chunk_budget() // len(take))
+        cap = max(1, self._step_prefill_left // len(take))
+        return take, [min(share, len(st.prefix) - st.pos, cap) for st in take]
+
+    def _advance_prefilling(self) -> list[StepOutput]:
+        """Advance every mid-prefill sequence one budgeted chunk, in one
+        ragged forward; sequences whose last chunk completes activate into
+        their reserved slots."""
+        if not self.prefilling:
+            return []
+        take, chunks = self._chunk_plan()
+        try:
+            logits = self._batched_window_forward(
+                [(st.request, st.prefix[st.pos: st.pos + chunks[i]], st.pos)
+                 for i, st in enumerate(take)])
+        except (RuntimeError, ValueError) as e:
+            logger.exception("batched chunk advance of %d prefills failed",
+                             len(take))
+            self.prefilling = [st for st in self.prefilling if st not in take]
+            return self._fail_group([st.request for st in take], e)
+        return self._finish_chunks(take, chunks, logits)
+
+    def _finish_chunks(self, take, chunks, chunk_logits) -> list[StepOutput]:
+        """Charge a chunk forward that succeeded; activate the prefills it
+        completed off their chunk rows' last-token logits."""
+        self._spend_prefill(sum(chunks), chunks=len(take))
+        done = []
+        for i, st in enumerate(take):
+            st.pos += chunks[i]
+            if st.pos == len(st.prefix):
+                self.prefilling.remove(st)
+                done.append((st.request, st.prefix, st.resumed,
+                             chunk_logits[i][None]))
+        return self._activate_group(done) if done else []
+
+    def _use_fused_step(self) -> bool:
+        """One forward for this step's decode AND chunk work?"""
+        return (self.fused_step_enabled and bool(self.prefilling)
+                and any(st.n_generated < st.request.params.max_tokens
+                        for st in self.running.values()))
+
+    def _fused_step(self) -> list[StepOutput]:
+        """Advance every mid-prefill sequence one budgeted chunk AND decode
+        the running batch in ONE forward: rows 0..B-1 are the decode slots,
+        rows B.. the chunk windows.  Chunk activations are emitted first,
+        then the decode tokens, as on the split path.  A failed forward
+        fails the chunk rows and decodes split this step."""
+        failures = self._ensure_decode_capacity()
+        live = self._live()
+        if not live or not self.prefilling:
+            # preemption took one row kind away since step()'s gate
+            return failures + self._advance_prefilling() + self._decode()
+        take, chunks = self._chunk_plan()
+        tokens, counts, positions, tables = self._decode_rows(live)
+        entries = [(st.prefix[st.pos: st.pos + chunks[i]], st.pos,
+                    self.alloc.page_table_row(st.request.request_id), 0)
+                   for i, st in enumerate(take)]
+        packed = pack_ragged_batch(
+            tokens[:, None], counts, positions, tables,
+            np.zeros_like(counts), entries, self.cache_cfg.trash_page,
+            rows=self._ragged_rows, chunk_rows=self._ragged_chunk_rows)
+        try:
+            logits, chunk_logits = self._ragged_forward(packed)
+        except (RuntimeError, ValueError) as e:
+            logger.exception("fused step of %d chunks failed", len(take))
+            self.prefilling = [st for st in self.prefilling if st not in take]
+            return (failures + self._fail_group([st.request for st in take], e)
+                    + self._decode())
+        self.sched.record_fused(packed.packed_tokens)
+        outputs = failures + self._finish_chunks(take, chunks, chunk_logits)
+        return outputs + self._decode_finish(live, logits[:, 0])
+
+    # -- activation ----------------------------------------------------------
+
+    def _activate_group(self, entries) -> list[StepOutput]:
+        """Publish each prompt's pages to the prefix cache, sample its
+        first token with its full sampling semantics, claim a slot,
+        install the slot's penalty rows and emit.  ``entries``:
+        ``[(request, prefix, resumed, logits_row [1, V])]``."""
+        logits = torch.cat([row for _, _, _, row in entries])
         B, V = logits.shape
         dev = self.device
         counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
         outs = torch.zeros_like(counts)
         sup = torch.zeros((B, V), dtype=torch.bool, device=dev)
         seeds, gens = [], []
-        for i, (request, prefix, _) in enumerate(items):
+        for i, (request, prefix, _, _) in enumerate(entries):
+            rid = request.request_id
+            chain = self._admission_chains.pop(rid, None)
+            if self.prefix_caching:
+                self.alloc.register_blocks(rid, prefix, chain=chain)
             n_prompt = len(request.prompt_tokens)
             ids = self._tensor(np.asarray(prefix, np.int64))
             counts[i].index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
@@ -384,10 +832,10 @@ class NativeEngine:
                 sup[i, list(p.stop_token_ids)] = True
             seeds.append(self._request_seed(request))
             gens.append(len(prefix) - n_prompt)
-        params = [r.params for r, _, _ in items]
+        params = [e[0].params for e in entries]
         tokens = self._sample(logits, params, counts, outs, sup, seeds, gens)
         outputs = []
-        for i, (request, prefix, resumed) in enumerate(items):
+        for i, (request, prefix, resumed, _) in enumerate(entries):
             token = tokens[i]
             slot = self._free_slots.pop()
             state = _SeqState(request=request, tokens=list(prefix) + [token],
@@ -434,30 +882,46 @@ class NativeEngine:
 
     # -- decode --------------------------------------------------------------
 
-    def _decode(self) -> list[StepOutput]:
-        failures = self._ensure_decode_capacity()
-        live = {s: st for s, st in self.running.items()
+    def _live(self) -> dict[int, _SeqState]:
+        return {s: st for s, st in self.running.items()
                 if st.n_generated < st.request.params.max_tokens}
-        if not live:
-            return failures
+
+    def _decode_rows(self, live: dict):
+        """Per-slot decode rows (dead slots: zero-length, trash pages):
+        input tokens [B], window lengths [B], positions [B], tables
+        [B, mp], all int32."""
         B = self.max_batch_size
-        mp = self.cache_cfg.max_pages_per_seq
-        tokens = np.zeros((B,), np.int64)
+        tokens = np.zeros((B,), np.int32)
+        counts = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
-        tables = np.full((B, mp), self.cache_cfg.trash_page, np.int32)
-        active = np.zeros((B,), bool)
+        tables = np.full((B, self.cache_cfg.max_pages_per_seq),
+                         self.cache_cfg.trash_page, np.int32)
         for slot, st in live.items():
             tokens[slot] = st.tokens[-1]
+            counts[slot] = 1
             # the input token was sampled last step; its KV lands at len-1
             positions[slot] = len(st.tokens) - 1
             tables[slot] = self.alloc.page_table_row(st.request.request_id)
-            active[slot] = True
-        logits = decode_step(self.cfg, self.cache_cfg, self.params, self.cache,
-                             self._tensor(tokens), self._tensor(positions),
-                             self._tensor(tables), self._tensor(active),
-                             kv_splits=self.kv_splits)
-        self.sched.charge_weight_pass()
-        slots = sorted(live)
+        return tokens, counts, positions, tables
+
+    def _decode(self) -> list[StepOutput]:
+        """Decode the running batch: the same ragged forward as the fused
+        step with zero chunk rows."""
+        failures = self._ensure_decode_capacity()
+        live = self._live()
+        if not live:
+            return failures
+        tokens, counts, positions, tables = self._decode_rows(live)
+        packed = pack_ragged_batch(
+            tokens[:, None], counts, positions, tables, np.zeros_like(counts),
+            [], self.cache_cfg.trash_page, rows=self._ragged_rows, chunk_rows=0)
+        logits, _ = self._ragged_forward(packed)
+        return failures + self._decode_finish(live, logits[:, 0])
+
+    def _decode_finish(self, live: dict, logits: torch.Tensor) -> list[StepOutput]:
+        """The decode sampling tail shared by the split and fused paths,
+        off slot-aligned logits [B, V]."""
+        slots = list(live)
         idx = torch.tensor(slots, device=self.device)
         params = [live[s].request.params for s in slots]
         sampled = self._sample(
@@ -468,7 +932,7 @@ class NativeEngine:
         self._token_counts[idx, tok_t] += 1
         self._output_counts[idx, tok_t] += 1
         self.sched.charge_decode(len(live))
-        outputs = list(failures)
+        outputs = []
         for slot, token in zip(slots, sampled):
             st = live[slot]
             st.tokens.append(token)
@@ -494,8 +958,9 @@ class NativeEngine:
                     if self._preempt_youngest(exclude_slot=slot,
                                               than_arrival=st.request.arrival_time):
                         continue
-                    if len(self.running) > 1:
-                        self._preempt_slot(slot)
+                    if len(self.running) > 1 or self.prefilling:
+                        # older work holds the pages: step aside
+                        self._preempt_running_slot(slot)
                         break
                     logger.error("request %s exceeds total KV capacity",
                                  st.request.request_id)
@@ -511,10 +976,22 @@ class NativeEngine:
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _fail(self, request: Request, e: Exception) -> StepOutput:
-        self.errors_total += 1
-        return StepOutput(request_id=request.request_id, token=0, finished=True,
-                          finish_reason=f"error:{e}")
+    def _upload_int32(self, arrays) -> list[torch.Tensor]:
+        """int32 host arrays → device tensors of the same shapes through
+        ONE copy; each starts on a 16-byte boundary of the buffer."""
+        offsets, n = [], 0
+        for a in arrays:
+            offsets.append(n)
+            n += -(-a.size // 4) * 4
+        buf = np.zeros((n,), np.int32)
+        for a, o in zip(arrays, offsets):
+            buf[o: o + a.size] = a.ravel()
+        dev = torch.from_numpy(buf).to(self.device)
+        return [dev[o: o + a.size].view(a.shape) for a, o in zip(arrays, offsets)]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _emit(self, state: _SeqState, token: int,
               first: bool = False) -> StepOutput:

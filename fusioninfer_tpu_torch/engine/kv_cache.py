@@ -7,6 +7,9 @@ pools ``[n_layers, n_kv_heads, n_pages, 1, page_size]`` (k_scale,
 v_scale) hold one scale per (token, head).
 The last page is the reserved "trash" page padded positions write to.
 Host side: a free-list allocator; allocation never touches the device.
+Prefix caching (``engine/prefix_cache.py``) subclasses it through the
+:meth:`PageAllocator._drop_page_ref` and :meth:`PageAllocator.can_admit`
+hooks.
 """
 
 from __future__ import annotations
@@ -101,15 +104,21 @@ HBM_UTILIZATION = 0.85
 
 def auto_cache_config(cfg: ModelConfig, page_size: int, max_model_len: int,
                       max_batch_size: int, device,
-                      kv_dtype: str = "model") -> CacheConfig:
+                      kv_dtype: str = "model",
+                      prefix_caching: bool = True) -> CacheConfig:
     """Size the page pool for ``max_batch_size`` sequences of
     ``max_model_len`` tokens.  On a CUDA device the request-shaped pool
     is first checked against ``torch.cuda.mem_get_info`` (total memory ×
     ``HBM_UTILIZATION`` minus the weights): a pool that cannot fit fails
-    at startup instead of mid-serving.  Without prefix caching the pool
-    stays demand-sized: extra pages could never be allocated."""
+    at startup instead of mid-serving.  With ``prefix_caching`` (the
+    engine's default) released pages stay cached as evictable content,
+    so pages beyond peak demand raise the hit rate: the pool then grows
+    into the remaining memory, capped at 4× demand.  Without prefix
+    caching, or off the card, the pool stays demand-sized: extra pages
+    could never be allocated."""
     pages_per_seq = max(1, -(-max_model_len // page_size))
     min_pages = pages_per_seq * max_batch_size + 1
+    n_pages = min_pages
     device = torch.device(device)
     if device.type == "cuda":
         _, total = torch.cuda.mem_get_info(device)
@@ -121,7 +130,9 @@ def auto_cache_config(cfg: ModelConfig, page_size: int, max_model_len: int,
                 f"max_batch_size={max_batch_size} needs {min_pages} KV pages "
                 f"but only {max(0, int(fit))} fit in {HBM_UTILIZATION:.0%} of "
                 f"{total / 2**30:.1f} GiB after weights")
-    return CacheConfig(n_pages=min_pages, page_size=page_size,
+        if prefix_caching:
+            n_pages = min(int(fit), 4 * min_pages)
+    return CacheConfig(n_pages=n_pages, page_size=page_size,
                        max_pages_per_seq=pages_per_seq,
                        kv_dtype=kv_dtype).validate()
 
@@ -138,12 +149,28 @@ class PageAllocator:
     def free_pages(self) -> int:
         return len(self._free)
 
+    @property
+    def used_pages(self) -> int:
+        return (self.cache_cfg.n_pages - 1) - len(self._free)
+
+    def utilization(self) -> float:
+        total = self.cache_cfg.n_pages - 1
+        return 0.0 if total == 0 else self.used_pages / total
+
     def pages_needed(self, n_tokens: int) -> int:
         return max(1, -(-n_tokens // self.cache_cfg.page_size))
 
     def can_allocate(self, n_tokens: int) -> bool:
         need = self.pages_needed(n_tokens)
         return need <= len(self._free) and need <= self.cache_cfg.max_pages_per_seq
+
+    def can_admit(self, prompt_tokens: list, extra_tokens: int = 1,
+                  namespace: bytes = b"", chain=None) -> bool:
+        """Admission check for a new request (the prefix-caching subclass
+        counts the cached pages it would reuse; ``namespace`` and
+        ``chain``, the prompt's precomputed block-hash chain, serve it)."""
+        del namespace, chain  # no content addressing in the base allocator
+        return self.can_allocate(len(prompt_tokens) + extra_tokens)
 
     def allocate(self, seq_id: str, n_tokens: int) -> list[int]:
         need = self.pages_needed(n_tokens)
@@ -175,8 +202,14 @@ class PageAllocator:
     def pages_of(self, seq_id: str) -> list[int]:
         return list(self._owned.get(seq_id, []))
 
+    def _drop_page_ref(self, page: int) -> None:
+        """One owner lets go of ``page``.  Subclass hook: the prefix-
+        caching allocator unrefs shared pages here instead of freeing."""
+        self._free.append(page)
+
     def release(self, seq_id: str) -> None:
-        self._free.extend(self._owned.pop(seq_id, []))
+        for page in self._owned.pop(seq_id, []):
+            self._drop_page_ref(page)
 
     def page_table_row(self, seq_id: str) -> np.ndarray:
         """Fixed-width page table row, trash-padded."""

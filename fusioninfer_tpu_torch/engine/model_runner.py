@@ -1,12 +1,17 @@
-"""KV-cache-aware prefill and decode (port of the serve path of
+"""KV-cache-aware forwards (port of the serve path of
 ``fusioninfer_tpu/engine/model_runner.py``).
 
-* :func:`prefill`: B prompts padded to one bucket length run the causal
-  forward (flash attention per layer) while their fresh K/V scatter into
-  the sequences' pages; returns logits at each row's last real token.
-* :func:`decode_step`: B sequences × one token; each token's K/V lands in
-  its page slot, then attention goes through the one ragged dispatch
-  (:func:`_ragged_attn`) over the pages in place.
+* :func:`prefill`: B fresh prompts padded to one bucket length run the
+  causal forward (flash attention per layer) while their fresh K/V
+  scatter into the sequences' pages; returns logits at each row's last
+  real token.
+* :func:`fused_step`: ONE forward over a flat ragged token axis that
+  carries decode rows and prefill-chunk rows (cache-hit suffixes, chunk
+  advances, or both beside decode rows); each token's K/V lands in its
+  page slot, then attention goes through the one ragged dispatch
+  (:func:`_ragged_attn`) over the pages in place.  Every engine forward
+  that reads paged context comes here.
+* :func:`decode_step`: the zero-chunk case of :func:`fused_step`.
 
 The pool is updated in place (PyTorch tensors are mutable; the JAX
 package donates and rebinds).  Layers run as a Python loop where the JAX
@@ -33,6 +38,7 @@ from fusioninfer_tpu_torch.models.transformer import (
 from fusioninfer_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_kvsplit,
+    ragged_token_rows,
 )
 
 
@@ -58,15 +64,20 @@ def _scatter_kv(cache: dict, l: int, k: torch.Tensor, v: torch.Tensor,
 
 
 def _ragged_attn(q, cache, page_tables, row_starts, q_begins, q_lens, *,
-                 layer: int, window, kv_splits: int) -> torch.Tensor:
+                 layer: int, window, kv_splits: int,
+                 cluster: int | None = None) -> torch.Tensor:
     """The one ragged dispatch every paged forward routes through: the
     split walk when the engine's static heuristic engaged it
-    (``kv_splits > 0``), else the single walk; an int8 pool passes its
-    scale pools along."""
-    walk = ragged_paged_attention_kvsplit if kv_splits > 0 else ragged_paged_attention
-    return walk(q, cache["k"], cache["v"], page_tables, row_starts, q_begins,
-                q_lens, cache.get("k_scale"), cache.get("v_scale"),
-                window=window, layer=layer)
+    (``kv_splits > 0``), else the single walk at the engine's fixed
+    ``cluster`` size; an int8 pool passes its scale pools along."""
+    scales = (cache.get("k_scale"), cache.get("v_scale"))
+    if kv_splits > 0:
+        return ragged_paged_attention_kvsplit(
+            q, cache["k"], cache["v"], page_tables, row_starts, q_begins,
+            q_lens, *scales, window=window, layer=layer)
+    return ragged_paged_attention(
+        q, cache["k"], cache["v"], page_tables, row_starts, q_begins, q_lens,
+        *scales, window=window, layer=layer, cluster=cluster)
 
 
 @torch.no_grad()
@@ -97,39 +108,86 @@ def prefill(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
-                cache: dict, tokens: torch.Tensor, positions: torch.Tensor,
-                page_tables: torch.Tensor, active: torch.Tensor,
-                kv_splits: int = 0) -> torch.Tensor:
-    """One decode step for the whole batch → logits [B, V].
+def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
+               cache: dict, tokens: torch.Tensor, row_starts: torch.Tensor,
+               q_begins: torch.Tensor, q_lens: torch.Tensor,
+               page_tables: torch.Tensor, sel: torch.Tensor,
+               chunk_sel: torch.Tensor, kv_splits: int = 0,
+               cluster: int | None = None, *, n_tokens: int):
+    """ONE weight pass over a flat ragged token axis → ``(logits [B, W,
+    V], chunk_logits [NC, V])``.
 
-    tokens [B] (the input token of each row), positions [B] int32 (the
-    index it lands at), page_tables [B, max_pages_per_seq] int32, active
-    [B] bool; inactive rows write to the trash page and attend nothing."""
-    B = tokens.shape[0]
+    tokens [T] (the flat axis, :func:`engine.fused.pack_ragged_batch`);
+    per row ``r``: row_starts [R] int32 (global position of its token 0),
+    q_begins [R] int32 (flat offset of its segment), q_lens [R] int32 (its
+    token count, 0 = inert), page_tables [R, mp] int32; sel [B, W] the
+    decode slots' flat window indices, chunk_sel [NC] the chunk rows' flat
+    last-token indices.  Tokens in no row write to the trash page and
+    attend nothing.
+
+    Decode rows (one token), cache-hit suffixes and prefill chunks (many
+    tokens from a mid-sequence start) ride one embed → layers → lm_head
+    pass; attention is the one ragged dispatch, whose per-token bits do
+    not depend on the other rows (the split walk's fixed chunks, the
+    single walk's fixed ``cluster``).  The two groups project through
+    SEPARATE lm_head calls, the decode group ``[B·W, D]`` (constant per
+    engine) and the chunk group ``[NC, D]`` (the power-of-two chunk
+    count), because GEMM bits vary with the row count: a stream's logits
+    then do not depend on which dispatch computed them.
+
+    ``n_tokens``: the live tokens, a prefix of the flat axis (the pack's
+    ``packed_tokens``); the forward runs over them alone.  The padding
+    after them is the JAX layout's compile-signature bucket, of no use
+    to eager PyTorch, and would only launch dead blocks in the walks."""
+    T = n_tokens
+    tokens = tokens[:T]
     ps = cache_cfg.page_size
     dev = tokens.device
-    x = embed_lookup(params["embed"], tokens)[:, None, :]  # [B, 1, D]
-    rows = torch.arange(B, device=dev)
+    row_of, off, live = ragged_token_rows(q_begins, q_lens, T)
+    positions = torch.where(live, row_starts[row_of] + off,
+                            torch.zeros_like(off))
+    tables_tok = page_tables[row_of]  # [T, mp]: each token's row's pages
     write_page = torch.where(
-        active, page_tables[rows, (positions // ps).long()],
+        live, tables_tok[torch.arange(T, device=dev), (positions // ps).long()],
         torch.full_like(positions, cache_cfg.trash_page)).long()
     write_slot = (positions % ps).long()
+    x = embed_lookup(params["embed"], tokens)[:, None, :]  # [T, 1, D]
     rope = rope_tables(positions[:, None], cfg.head_dim, cfg.rope_theta)
-    q_begins = rows.to(torch.int32)
-    q_lens = active.to(torch.int32)
     for l in range(cfg.n_layers):
         layer = layer_params(params, l)
         q, k, v = qkv_proj(cfg, layer, x, rope)
         _scatter_kv(cache, l, k[:, 0], v[:, 0], write_page, write_slot,
                     head_axis=1)
         attn = _ragged_attn(q[:, 0].contiguous(), cache, page_tables,
-                            positions, q_begins, q_lens, layer=l,
-                            window=cfg.sliding_window, kv_splits=kv_splits)
+                            row_starts, q_begins, q_lens, layer=l,
+                            window=cfg.sliding_window, kv_splits=kv_splits,
+                            cluster=cluster)
         x = x + attn[:, None, :] @ layer["wo"]
         x = x + mlp_block(cfg, layer, x)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return lm_head(cfg, params, x[:, 0])
+    h = rms_norm(x, params["final_norm"], cfg.rms_eps)[:, 0]  # [T, D]
+    idx = sel.long().clamp(0, T - 1)  # [B, W]
+    cidx = chunk_sel.long().clamp(0, T - 1)  # [NC]
+    chunk_logits = lm_head(cfg, params, h[cidx])
+    logits = lm_head(cfg, params, h[idx.reshape(-1)])
+    return logits.reshape(*idx.shape, logits.shape[-1]), chunk_logits
+
+
+def decode_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
+                cache: dict, tokens: torch.Tensor, positions: torch.Tensor,
+                page_tables: torch.Tensor, active: torch.Tensor,
+                kv_splits: int = 0, cluster: int | None = None) -> torch.Tensor:
+    """One decode step for the whole batch → logits [B, V]: the
+    zero-chunk :func:`fused_step`, row ``b`` being token ``b``.
+
+    tokens [B] (the input token of each row), positions [B] int32 (the
+    index it lands at), page_tables [B, max_pages_per_seq] int32, active
+    [B] bool; inactive rows write to the trash page and attend nothing."""
+    rows = torch.arange(tokens.shape[0], dtype=torch.int32, device=tokens.device)
+    logits, _ = fused_step(cfg, cache_cfg, params, cache, tokens, positions,
+                           rows, active.to(torch.int32), page_tables,
+                           rows[:, None], rows[:0], kv_splits, cluster,
+                           n_tokens=tokens.shape[0])
+    return logits[:, 0]
 
 
 def prefill_buckets(max_len: int, smallest: int = 32) -> list[int]:

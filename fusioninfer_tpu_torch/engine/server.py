@@ -304,7 +304,11 @@ class EngineServer:
                     eng = server.engine
                     self._send_json({"status": "ok", "running": eng.num_running,
                                      "waiting": eng.num_waiting,
+                                     "prefilling": eng.num_prefilling,
                                      "device": str(eng.device),
+                                     "kv_cache_usage": eng.kv_cache_usage(),
+                                     "prefix_cache_hit_rate":
+                                         eng.prefix_cache_hit_rate(),
                                      "sched": eng.sched.snapshot()})
                 elif self.path == "/v1/models":
                     self._send_json({"object": "list", "data": [{
@@ -387,9 +391,16 @@ class EngineServer:
 
 
 def engine_from_args(args) -> NativeEngine:
-    """Build the serve engine from ``engine serve`` flags; decode's
-    split-KV walk engages from the static cache config, and
-    ``--kv-cache-dtype int8`` makes the pages int8."""
+    """Build the serve engine from ``engine serve`` flags, with the JAX
+    server's meanings: prefix caching on unless ``--no-prefix-caching``
+    (the pool then grows into free memory); ``--tokens-per-step 0`` (the
+    default) derives the token budget from a forward timed on the device
+    (:meth:`NativeEngine.calibrate_token_budget`) unless
+    ``--no-token-budget``, though an explicit ``--prefill-chunk-size``
+    still seeds a budget of that many tokens; ``--no-fused-step`` splits
+    mixed steps into a chunk forward and a decode forward.  The split
+    walk engages from the static cache config, and ``--kv-cache-dtype
+    int8`` makes the pages int8."""
     from fusioninfer_tpu_torch.engine.engine import resolve_device
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
@@ -397,10 +408,24 @@ def engine_from_args(args) -> NativeEngine:
     device = resolve_device(args.device)
     cfg = get_preset(args.model)
     kv_dtype = "int8" if args.kv_cache_dtype == "int8" else "model"
+    prefix_caching = not args.no_prefix_caching
     cache_cfg = auto_cache_config(cfg, args.page_size, args.max_model_len,
-                                  args.max_batch_size, device, kv_dtype)
-    return NativeEngine(cfg, cache_cfg, max_batch_size=args.max_batch_size,
-                        seed=args.seed, device=device)
+                                  args.max_batch_size, device, kv_dtype,
+                                  prefix_caching=prefix_caching)
+    logger.info("cache: %d pages of %d tokens", cache_cfg.n_pages,
+                cache_cfg.page_size)
+    engine = NativeEngine(
+        cfg, cache_cfg, max_batch_size=args.max_batch_size, seed=args.seed,
+        device=device, enable_prefix_caching=prefix_caching,
+        prefill_chunk_size=args.prefill_chunk_size or None,
+        token_budget=(None if args.no_token_budget
+                      else args.tokens_per_step or None),
+        fused_step=args.fused_step)
+    if not args.no_token_budget and engine.token_budget is None:
+        budget = engine.calibrate_token_budget()
+        logger.info("token budget derived from measured step latency: "
+                    "%d tokens/step", budget)
+    return engine
 
 
 def serve_from_args(args) -> int:

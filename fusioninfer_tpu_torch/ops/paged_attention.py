@@ -35,7 +35,11 @@ sequence, KV head), with a partition rule per walk
 ``CL`` comes from :func:`pick_cluster_size` (shapes only, so a launch
 reads nothing back from the card and a CUDA graph can capture it) and
 rank ``r`` walks the ``r``-th share of the pages the query sees; a row's
-bits then depend on ``CL``, which depends on the batch's token count.  In
+bits then depend on ``CL`` and on nothing else of the launch.  The
+engine fixes the single walk's ``CL`` once from its static shapes
+(:func:`engine_cluster_size`), so a decode row comes out bit for bit the
+same whether it runs alone, with other decode rows or beside a prefill
+chunk; a standalone call takes ``CL`` from its own token count.  In
 the split walk ``CL`` is ``KV_SPLIT_CHUNKS`` and rank ``c`` walks virtual
 chunk ``c``, the ``ceil(mp / 8)`` pages from page ``c·ceil(mp / 8)`` of
 the row's table, cut to the visible keys, so a row's bits depend only on
@@ -519,6 +523,18 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def engine_cluster_size(n_rows: int, kv_heads: int, max_pages: int,
+                        device) -> int | None:
+    """The single walk's cluster size an engine fixes once from its static
+    shapes (``n_rows`` decode rows, its KV heads and page-table width), so
+    that a row's bits do not change with what shares its launch; None off
+    the card, where the plain version runs."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return pick_cluster_size(n_rows, kv_heads, max_pages, _sm_count(device))
+
+
 def _ragged_operands(q, k_pages, v_pages, descriptors, k_scales, v_scales,
                      layer):
     H, Hd, KV, n_pages, ps = _check_pages(q, k_pages, v_pages, k_scales,
@@ -536,10 +552,16 @@ def _check_int8_page_size(ps: int, quantized: bool) -> None:
         raise ValueError(f"int8 pages need a page size that is a multiple of 4, got {ps}")
 
 
-def _cluster_walk(q, T: int, KV: int, ps: int, mp: int, quantized: bool) -> int:
-    """The single walk's and paged decode's cluster size for ``T`` queries
-    (raises for an int8 page size the kernel cannot take)."""
+def _cluster_walk(q, T: int, KV: int, ps: int, mp: int, quantized: bool,
+                  cluster: int | None = None) -> int:
+    """The single walk's and paged decode's cluster size: ``cluster`` when
+    the caller fixed one, else the shape rule for ``T`` queries (raises
+    for an int8 page size the kernel cannot take)."""
     _check_int8_page_size(ps, quantized)
+    if cluster is not None:
+        if cluster not in CLUSTER_SIZES:
+            raise ValueError(f"cluster {cluster} not in {CLUSTER_SIZES}")
+        return cluster
     return pick_cluster_size(T, KV, mp, _sm_count(q.device))
 
 
@@ -551,9 +573,14 @@ def _variant(name: str, k_scales) -> str:
 def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_starts,
                            q_begins, q_lens, k_scales=None, v_scales=None,
                            *, window: int | None = None,
-                           layer: int | None = None) -> torch.Tensor:
+                           layer: int | None = None,
+                           cluster: int | None = None) -> torch.Tensor:
     """The single page walk → ``[T, H·Hd]``: the CUDA kernel for CUDA
-    tensors, :func:`reference_ragged_paged_attention` for CPU tensors."""
+    tensors, :func:`reference_ragged_paged_attention` for CPU tensors.
+    ``cluster`` fixes the blocks per (token, KV head); None takes
+    :func:`pick_cluster_size` of this launch's shapes, under which a
+    row's last bits depend on how many tokens share the launch (an
+    engine passes :func:`engine_cluster_size`)."""
     descriptors = (page_tables, row_starts, q_begins, q_lens)
     if not dispatch.use_kernel(q, k_pages, v_pages, *descriptors):
         kp, vp, ks, vs = _plain_pages(k_pages, v_pages, k_scales, v_scales, layer)
@@ -568,7 +595,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_starts,
     out = torch.empty((T, H * Hd), dtype=q.dtype, device=q.device)
     if T == 0:
         return out
-    cluster = _cluster_walk(q, T, KV, ps, mp, ks is not None)
+    cluster = _cluster_walk(q, T, KV, ps, mp, ks is not None, cluster)
     err = fn(*_pointers(q, kp, vp, ks, vs, *descriptors, out),
              T, R, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
              window or 0, cluster, _stream(q))

@@ -90,7 +90,8 @@ def test_greedy_streams_identical_to_jax(weights, kv_splits, n_pages, lens):
     ref, ref_fin = _run(je, jeng.Request, lambda: jsamp.SamplingParams(
         temperature=0.0, max_tokens=MAX_TOKENS), prompts)
     tcc = tkv.CacheConfig(n_pages=n_pages, page_size=16, max_pages_per_seq=mp)
-    te = teng.NativeEngine(ct, tcc, params=pt, device="cpu", kv_splits=kv_splits)
+    te = teng.NativeEngine(ct, tcc, params=pt, device="cpu", kv_splits=kv_splits,
+                           enable_prefix_caching=False, fused_step=False)
     assert te.kv_splits == kv_splits
     ours, fin = _run(te, teng.Request, lambda: tsamp.SamplingParams(
         temperature=0.0, max_tokens=MAX_TOKENS), prompts)

@@ -13,9 +13,11 @@ tables, the 2048 leg's decode profile), and of the split walk at
 contexts 100…4000 and 101…1501, both over 32-page tables (the 4096
 leg's); then qwen3-8b engines at max-model-len 2048 (the single walk)
 and 4096 (the split walk, on bf16 and on int8 KV pages), random weights
-from seed 0, each through
-``chip_smoke.profile_decode``: wall and device ms per decode step and
-the walk's device ms per step.  The helpers come from this checkout's
+from seed 0, each through ``chip_smoke.profile_decode`` over 24 steps:
+wall, thread CPU and device ms per decode step and the walk's device ms
+per step.  Both sides build their engines without prefix caching (on a
+demand-sized pool), where the checkout has the option, so that they
+profile one configuration.  The helpers come from this checkout's
 ``chip_smoke.py``.  Needs one CUDA card; the first line printed is the
 card's name and power limit.
 """
@@ -23,6 +25,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -36,6 +39,13 @@ CTX_SERVE = (101, 301, 501, 701, 901, 1101, 1301, 1501)
 SHAPES = (("ctx 100..4000", CTX_LONG, 32, ("walk", "decode", "split")),
           ("ctx 101..1501", CTX_SERVE, 16, ("walk", "decode")),
           ("ctx 101..1501 mp 32", CTX_SERVE, 32, ("split",)))
+
+
+def _accepted(fn, **kw) -> dict:
+    """The keyword arguments of ``kw`` that ``fn`` takes (an older
+    checkout may lack them)."""
+    params = inspect.signature(fn).parameters
+    return {k: v for k, v in kw.items() if k in params}
 
 
 def _chip_smoke():
@@ -99,13 +109,17 @@ def one_turn(tree: str) -> dict:
     params = None
     for max_len, splits, kv_dtype in ((2048, False, "model"), (4096, True, "model"),
                                       (4096, True, "int8")):
-        engine = NativeEngine(cfg, auto_cache_config(cfg, 128, max_len, 8, "cuda", kv_dtype),
-                              max_batch_size=8, seed=cs.SEED, params=params, device="cuda")
+        cache_cfg = auto_cache_config(cfg, 128, max_len, 8, "cuda", kv_dtype,
+                                      **_accepted(auto_cache_config, prefix_caching=False))
+        engine = NativeEngine(cfg, cache_cfg, max_batch_size=8, seed=cs.SEED, params=params,
+                              device="cuda",
+                              **_accepted(NativeEngine, enable_prefix_caching=False))
         if (engine.kv_splits != 0) != splits:
             raise RuntimeError(f"max-model-len {max_len}: kv_splits {engine.kv_splits}")
-        prof = cs.profile_decode(engine)
+        prof = cs.profile_decode(engine, n_steps=24)
         leg = f"{max_len}" + (" int8" if kv_dtype == "int8" else "")
         res[f"{leg} step wall ms"] = prof["wall_ms_per_step"]
+        res[f"{leg} step cpu ms"] = prof["cpu_ms_per_step"]
         res[f"{leg} step device ms"] = prof["device_ms_per_step"]
         res[f"{leg} walk ms per step"] = prof["walk_ms_per_step"]
         res[f"{leg} walk kernels per step"] = prof["walk_kernels_per_step"]
