@@ -34,7 +34,13 @@ Phases, in order; any failure exits non-zero before the result line:
    their plain versions on both page types and timed beside the
    query-window kernel's C512 time; and each decode row must come out
    bit-identical alone, in the decode-only launch and inside the fused
-   launch, the single walk at the cluster size the engine fixes;
+   launch, the single walk at the cluster size the engine fixes.  At the
+   speculative step's shape (the 8 decode rows, each a window of 1 + 4
+   tokens ending at ctx 100…4000) both walks are held against their
+   plain versions on both page types and timed, the single walk at the
+   engine's cluster size and at the one fixed from the step's 40 tokens;
+   and each decode row must come out bit-identical whether its
+   neighbours carry 0 or 4 drafts;
 4. serve ``qwen3-8b`` at full width (36 layers, random bf16 weights from
    a seed) through the port's HTTP server at ``--max-model-len 4096``
    (phases 4-6 as the earlier slices served: ``--no-prefix-caching
@@ -62,7 +68,20 @@ Phases, in order; any failure exits non-zero before the result line:
    hits must have computed only their suffixes, fused steps must have run
    with one walk launch per layer per forward, and every served token
    must pass the greedy check; then the fused step's profile (one walk
-   kernel, one launch per layer a step).
+   kernel, one launch per layer a step);
+8. speculative decoding (``--speculative-ngram 4``, ``--tokens-per-step
+   512``) on bf16 pages at 4096 (split walk) and 2048 (single walk) and
+   on int8 pages at 2048: four prompts that quote a passage and ask for
+   it again, served greedy and then seeded sampled (temperature 0.8,
+   top_k 40); every accepted greedy draft must be the window's argmax,
+   every greedy token must pass the greedy check and every ragged
+   forward must launch one walk per layer; drafts proposed and accepted,
+   tokens per row and step, SSE decode tok/s per stream and a decode
+   step's wall, thread-CPU and device ms are printed, then the same for
+   an engine without speculation on the same prompts, with the first
+   index at which the two greedy streams differ; on the first leg, a
+   request with ``logprobs: 3`` and a ``logit_bias``, and a seeded top-k
+   stream that must be the same when served twice.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -121,6 +140,10 @@ FUSED_CHUNK = (1024, 512)
 # long prompt per leg, every request SSE with MAX_TOKENS greedy tokens
 PREFIX_TAILS = (16, 64, 128, 200)
 TOKENS_PER_STEP = 512
+# speculative decoding (phase 8, and the spec shape of phase 3): drafts per
+# row, the served tokens of each request
+SPEC_K = 4
+SPEC_MAX_TOKENS = 64
 # the page walks' kernel names in a profile: this tree's one kernel, and
 # the split walk's two kernels of earlier trees (for tools/walk_ab.py)
 WALK_KERNELS = ("walk_kernel", "split_kernel", "kvsplit_combine_kernel")
@@ -726,6 +749,100 @@ def check_fused_bits(gen, cluster: int) -> dict:
     return {"rows": n, "rows_moved_by_shape_rule": moved}
 
 
+def spec_rows(drafts) -> list[tuple[int, int]]:
+    """The speculative decode step's rows ``[(start, n)]``: decode row i
+    carries its input token and ``drafts[i]`` drafts, its window ending at
+    the DECODE_CTX[i]-th key (causal within the window)."""
+    return [(c - 1 - SPEC_K, 1 + d) for c, d in zip(DECODE_CTX, drafts)]
+
+
+def check_spec_shape(gen, split: bool, int8: bool, clusters: tuple[int, ...]) -> dict:
+    """A ragged walk at the speculative decode step's shape: the 8 decode
+    rows, each a window of 1 + SPEC_K tokens ending at ctx 100…4000 (T40,
+    ps 128, 32-page tables, layer 1 of a two-layer pool), against its plain
+    version, timed beside the bound and SDPA (one call per sequence, a
+    causal mask over its window).  The single walk runs at each cluster
+    size of ``clusters`` (the first one's numbers are returned, every
+    one's time under ``ms_by_cluster``)."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    rows = spec_rows([SPEC_K] * len(DECODE_CTX))
+    kp, vp, ks, vs, tables = paged_pool(gen, rows, int8)
+    *ragged, T = ragged_batch(rows)
+    desc = (tables, *ragged)
+    q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    sc = (ks, vs) if int8 else ()
+    lsc = (ks[1], vs[1]) if int8 else ()
+    pages = ", int8 pages" if int8 else ""
+    shape = f"T{T}: 8 decode rows x {1 + SPEC_K} tokens ending at ctx 100..4000, ps 128{pages}"
+    sdpa = (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[1], vp[1], tables, rows))
+    if split:
+        return measure("paged split-KV" + (" int8" if int8 else ""), shape,
+                       lambda: pa.ragged_paged_attention_kvsplit(q, kp, vp, *desc, *sc,
+                                                                 layer=1),
+                       lambda: pa.reference_ragged_paged_attention_kvsplit(
+                           q, kp[1], vp[1], *desc, *lsc),
+                       PAGED_ROW_TOL, rows, int8, sdpa)
+    by_cl = {}
+    for cl in dict.fromkeys(clusters):
+        by_cl[cl] = measure(
+            f"paged single walk CL {cl}" + (" int8" if int8 else ""), shape,
+            lambda cl=cl: pa.ragged_paged_attention(q, kp, vp, *desc, *sc, layer=1,
+                                                    cluster=cl),
+            lambda: pa.reference_ragged_paged_attention(q, kp[1], vp[1], *desc, *lsc),
+            PAGED_ROW_TOL, rows, int8, sdpa)
+    return {**by_cl[clusters[0]], "cluster": clusters[0],
+            "ms_by_cluster": {cl: r["ms"] for cl, r in by_cl.items()}}
+
+
+def check_spec_bits(gen, cluster: int) -> int:
+    """Each decode row's outputs are ``torch.equal`` whether its neighbours
+    carry 0 or SPEC_K drafts: every row's window alone beside neighbours
+    of one token, all windows together (T40) and every row with none
+    (T8), on both walks and both page types, the single walk at the
+    engine's fixed cluster size.  Returns the rows compared."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    n = 0
+    full_rows = spec_rows([SPEC_K] * len(DECODE_CTX))
+    for int8 in (False, True):
+        kp, vp, ks, vs, tables = paged_pool(gen, full_rows, int8)
+        sc = (ks, vs) if int8 else ()
+        q_full = torch.randn((sum(c for _, c in full_rows), KV_HEADS * GROUP, HEAD_DIM),
+                             generator=gen, device="cuda").to(torch.bfloat16)
+        W = 1 + SPEC_K
+        for split in (False, True):
+            fn = pa.ragged_paged_attention_kvsplit if split else pa.ragged_paged_attention
+            kw = {} if split else {"cluster": cluster}
+
+            def walk(drafts):
+                """Row i's first 1 + drafts[i] tokens → the row outputs."""
+                rows = spec_rows(drafts)
+                q = torch.cat([q_full[i * W: i * W + c] for i, (_, c) in enumerate(rows)])
+                *desc, _ = ragged_batch(rows)
+                out = fn(q, kp, vp, tables, *desc, *sc, layer=1, **kw)
+                return list(torch.split(out, [c for _, c in rows]))
+
+            tag = ("split walk" if split else f"single walk CL {cluster}") + (
+                " int8" if int8 else "")
+            every = walk([SPEC_K] * 8)
+            none = walk([0] * 8)
+            for i in range(len(DECODE_CTX)):
+                alone = walk([SPEC_K if r == i else 0 for r in range(8)])
+                same = torch.equal(alone[i], every[i]) and torch.equal(every[i][:1], none[i])
+                same = same and all(torch.equal(alone[r], none[r]) for r in range(8) if r != i)
+                if not same:
+                    raise AssertionError(f"{tag}: decode row {i} (ctx {DECODE_CTX[i]}) "
+                                         "changes with its neighbours' drafts")
+                n += 1
+    return n
+
+
 def primitive_cases(gen) -> list[dict]:
     """The three standalone primitives at the stated shapes, each on bf16
     and on int8 pages (two-layer pools read at layer 1): paged decode of
@@ -1152,14 +1269,17 @@ def warm_up(engine, prompts) -> None:
         engine.step()
 
 
-def profile_decode(engine, n_steps: int = 8) -> dict:
+def profile_decode(engine, n_steps: int = 8, sampling: dict | None = None,
+                   device: bool = True) -> dict:
     """Eight requests (prompts of 100…1500 byte-tokens) decoding together
-    on ``engine``: wall ms per engine step without the profiler, and the
+    on ``engine``, greedy or with the ``SamplingParams`` fields of
+    ``sampling`` (a seed of its own per request): wall ms per engine step
+    without the profiler, and the
     CPU time the calling thread spent in those steps (a wall far above it
     means the thread waited: for the device, or for a core of a shared
-    host), then the same steps under ``torch.profiler`` for device time
-    per step and the kernels that take it.  Device busy share = device
-    ms / wall ms."""
+    host), then, with ``device``, the same steps under ``torch.profiler``
+    for device time per step and the kernels that take it.  Device busy
+    share = device ms / wall ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1168,9 +1288,11 @@ def profile_decode(engine, n_steps: int = 8) -> dict:
 
     lens = [100, 300, 500, 700, 900, 1100, 1300, 1500]
     for i, n in enumerate(lens):
+        kw = ({"temperature": 0.0} if sampling is None
+              else dict(sampling, seed=sampling.get("seed", 0) + i))
         engine.add_request(Request(f"prof{i}", [3 + (7 * j + i) % 250 for j in range(n)],
-                                   SamplingParams(temperature=0.0,
-                                                  max_tokens=3 * n_steps + 4)))
+                                   SamplingParams(max_tokens=(2 + device) * n_steps + 4,
+                                                  **kw)))
     engine.step()  # admission, prefill of all eight, first decode step
     engine.step()
     torch.cuda.synchronize()
@@ -1182,6 +1304,12 @@ def profile_decode(engine, n_steps: int = 8) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     cpu_ms = (time.thread_time() - c0) * 1e3 / n_steps
+    if not device:
+        for i in range(len(lens)):
+            engine.cancel(f"prof{i}")
+        while engine.has_work():
+            engine.step()
+        return {"batch": len(lens), "wall_ms_per_step": wall_ms, "cpu_ms_per_step": cpu_ms}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             engine.step()
@@ -1460,6 +1588,301 @@ def serve_prefix_leg(engine, long_len: int, card: str) -> dict:
             "decode_tok_s": {k: results[k]["decode_tok_s"] for k in order}}
 
 
+# -- phase 8: speculative decoding -----------------------------------------------
+
+
+SPEC_WORDS = ("the", "engine", "admits", "requests", "into", "a", "running", "batch",
+              "pages", "hold", "keys", "and", "values", "of", "each", "sequence", "walk",
+              "reads", "them", "back", "while", "decode", "rows", "draft", "tokens")
+
+
+def extractive_prompts(n: int, passage_len: int, salt: int = 0) -> list[str]:
+    """``n`` prompts that quote a passage of ~``passage_len`` bytes and ask
+    for it again, ending on its first words: the traffic n-gram drafts
+    serve (summaries, RAG answers, code edits quote their prompt)."""
+    out = []
+    for i in range(n):
+        words = [SPEC_WORDS[(7 * j + 3 * i + salt + j * j) % len(SPEC_WORDS)]
+                 for j in range(passage_len // 4)]
+        passage = " ".join(words)[:passage_len]
+        out.append(f"Passage {i}: {passage}\nRepeat the passage word for word.\n"
+                   f"{passage[: passage_len // 6]}")
+    return out
+
+
+def first_difference(a: list[int], b: list[int]) -> int | None:
+    """The first index at which two token streams differ (None if equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def spy_spec_bursts(engine, record: dict) -> None:
+    """Wrap ``engine._spec_bursts`` so that every greedy window is checked
+    against its own argmax: the accepted drafts and the token after them
+    must be the argmax at their positions, and the first rejected draft
+    must differ from it.  Counts land in ``record``; a mismatch is
+    recorded (the engine thread must not raise) and raised by the caller."""
+    real = engine._spec_bursts
+
+    def spy(live, logits_w, spec_drafts):
+        bursts = real(live, logits_w, spec_drafts)
+        for slot, (burst, accepted) in bursts.items():
+            record["windows"] += 1
+            record["accepted"] += accepted
+            if live[slot].request.params.temperature > 0.0:
+                continue
+            drafts = spec_drafts[slot]
+            argmax = logits_w[slot].argmax(dim=-1).tolist()
+            ok = burst == argmax[: accepted + 1] and drafts[:accepted] == argmax[:accepted]
+            ok = ok and (accepted == len(drafts) or drafts[accepted] != argmax[accepted])
+            record["greedy_drafts_checked"] += accepted
+            if not ok:
+                record["mismatches"].append((slot, drafts, burst, accepted))
+        return bursts
+
+    engine._spec_bursts = spy
+
+
+def serve_spec_requests(engine, prompts, sampling: dict, max_tokens: int) -> dict:
+    """The prompts sent at once as SSE requests through the port's server
+    with ``sampling`` (request fields), the launch counts set to 0 just
+    before; every request must return ``max_tokens`` tokens, and every
+    ragged forward must have launched one walk per layer."""
+    from fusioninfer_tpu_torch.engine.server import EngineServer
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    server = EngineServer(engine, host="127.0.0.1", port=0)
+    server.start()
+    results, errors = [None] * len(prompts), []
+    sched0 = engine.sched.snapshot()
+    spec0 = (engine.spec_proposed_total, engine.spec_accepted_total)
+
+    def one(i, text):
+        try:
+            body = {"prompt": text, "max_tokens": max_tokens, "stream": True, **sampling}
+            if "seed" in sampling:
+                body["seed"] = sampling["seed"] + i
+            results[i] = {**_post(server.port, body, stream=True), "prompt": text}
+        except Exception as e:  # noqa: BLE001 - collected and re-raised below
+            errors.append(f"request {i}: {e!r}")
+
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=one, args=(i, p)) for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a request did not finish within 600 s")
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError("; ".join(errors))
+    for i, r in enumerate(results):
+        if r["tokens"] != max_tokens or r["finish"] != "length":
+            raise AssertionError(f"request {i}: {r['tokens']} tokens, finish {r['finish']!r}")
+    launches = dispatch.launches()
+    sched1 = engine.sched.snapshot()
+    delta = {k: sched1[k] - sched0[k] for k in ("steps", "weight_passes", "decode_tokens",
+                                                "fused_steps")}
+    walk = sum(v for k, v in launches.items() if k.startswith("ragged_paged_attention"))
+    ragged_fwd = delta["weight_passes"] - launches["flash_attention"] / engine.cfg.n_layers
+    if walk != engine.cfg.n_layers * ragged_fwd:
+        raise AssertionError(f"{walk} walk launches for {ragged_fwd} ragged forwards of "
+                             f"{engine.cfg.n_layers} layers")
+    return {"wall_s": wall, "launches": launches, "sched_delta": delta,
+            "ragged_forwards": int(ragged_fwd),
+            "spec_proposed": engine.spec_proposed_total - spec0[0],
+            "spec_accepted": engine.spec_accepted_total - spec0[1],
+            "ttft_s": [r["ttft_s"] for r in results],
+            "decode_tok_s": [r["decode_tok_s"] for r in results],
+            "token_ids": [r["token_ids"] for r in results], "results": results}
+
+
+def profile_spec(engine, prompts, n_steps: int = 8) -> dict:
+    """Eight extractive requests decoding together on ``engine``: after
+    their admission, wall ms and the calling thread's CPU ms per engine
+    step, and the tokens each row emitted per step (1 without
+    speculation); then the same count of steps under ``torch.profiler``
+    for device ms per step and the walk's launches per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fusioninfer_tpu_torch.engine.engine import Request
+    from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+    from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    rids = [f"spec-prof{i}" for i in range(len(prompts))]
+    for rid, text in zip(rids, prompts):
+        engine.add_request(Request(rid, tok.encode(text), SamplingParams(
+            temperature=0.0, max_tokens=(1 + SPEC_K) * (2 * n_steps + 4))))
+    for _ in range(400):
+        if engine.num_running == len(prompts) and not engine.prefilling:
+            break
+        engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    if engine.num_running != len(prompts):
+        raise AssertionError(f"spec profile: {engine.num_running} rows running")
+    spec0 = (engine.spec_proposed_total, engine.spec_accepted_total)
+    t0, c0 = time.perf_counter(), time.thread_time()
+    emitted = 0
+    for _ in range(n_steps):
+        emitted += len(engine.step())
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    cpu_ms = (time.thread_time() - c0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+    if engine.num_running != len(prompts):
+        raise AssertionError("spec profile: a row finished inside the profile")
+    for rid in rids:
+        engine.cancel(rid)
+    while engine.has_work():
+        engine.step()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_steps
+    walks = [e for e in kernels if any(k in e.key for k in WALK_KERNELS)]
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    return {"rows": len(prompts), "wall_ms_per_step": wall_ms, "cpu_ms_per_step": cpu_ms,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms if device_ms else None,
+            "tokens_per_row_step": emitted / n_steps / len(prompts),
+            "spec_proposed": engine.spec_proposed_total - spec0[0],
+            "spec_accepted": engine.spec_accepted_total - spec0[1],
+            "walk_ms_per_step": sum(dev_us(e) for e in walks) / 1e3 / n_steps,
+            "walk_kernels_per_step": {e.key[:80]: e.count / n_steps for e in walks},
+            "top_kernels_ms_per_step": {e.key[:80]: dev_us(e) / 1e3 / n_steps
+                                        for e in top}}
+
+
+def check_logprobs(engine) -> dict:
+    """Through the server: one greedy request with ``logprobs: 3`` and a
+    ``logit_bias`` of +100 on byte 'e' (every token must be it, with a
+    logprobs entry of 3 alternatives each); then one seeded top-k request
+    (temperature 0.8, top_k 40, the candidate sampler) served twice,
+    which must give the same tokens both times."""
+    from fusioninfer_tpu_torch.engine.server import EngineServer
+
+    server = EngineServer(engine, host="127.0.0.1", port=0)
+    server.start()
+    forced = ord("e") + 3  # ByteTokenizer: byte b is id b + 3
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/completions",
+            data=json.dumps({"prompt": "Logprobs of a biased stream:", "max_tokens": 8,
+                             "temperature": 0.0, "logprobs": 3,
+                             "logit_bias": {str(forced): 100}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            out = json.loads(resp.read())
+        lp = out["choices"][0]["logprobs"]
+        if out["choices"][0]["text"] != "e" * 8 or len(lp["token_logprobs"]) != 8 or any(
+                len(t) != 3 for t in lp["top_logprobs"]):
+            raise AssertionError(f"logprobs / logit_bias request: {out['choices'][0]}")
+        body = {"prompt": "A seeded story about pages and keys:", "max_tokens": MAX_TOKENS,
+                "temperature": 0.8, "top_k": 40, "seed": 1234, "stream": True}
+        streams = [_post(server.port, body, stream=True)["token_ids"] for _ in range(2)]
+    finally:
+        server.stop()
+    if streams[0] != streams[1] or len(streams[0]) != MAX_TOKENS:
+        raise AssertionError(f"a seeded top-k stream served twice differs at "
+                             f"{first_difference(streams[0], streams[1])}")
+    return {"logprobs_request": lp, "seeded_stream": streams[0]}
+
+
+def serve_spec_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
+    """Phase 8, one leg: an engine with ``--speculative-ngram SPEC_K`` (the
+    serve defaults otherwise, ``--tokens-per-step 512``) serves four
+    extractive prompts greedy, then seeded sampled (temperature 0.8,
+    top_k 40), every window checked by :func:`spy_spec_bursts` and every
+    greedy token by :func:`check_greedy`; then :func:`profile_spec`.  An
+    engine without speculation serves the same greedy prompts and takes
+    the same profile (and, with ``extras``, :func:`check_logprobs`).
+    ``make_engine(speculative_k)`` builds the leg's engine."""
+    import torch
+
+    prompts = extractive_prompts(4, 600)
+    prof_prompts = extractive_prompts(8, 500, salt=5)
+    out = {}
+    for k in (SPEC_K, None):
+        engine = make_engine(k)
+        side = "on" if k else "off"
+        warm_up(engine, extractive_prompts(2, 300, salt=9))
+        record = {"windows": 0, "accepted": 0, "greedy_drafts_checked": 0,
+                  "mismatches": []}
+        if k:
+            spy_spec_bursts(engine, record)
+        greedy = serve_spec_requests(engine, prompts, {"temperature": 0.0}, SPEC_MAX_TOKENS)
+        gap = check_greedy(engine, greedy["results"], paged_prompt=True)
+        leg = {"greedy": greedy, "greedy_gap": gap}
+        if k:
+            leg["sampled"] = serve_spec_requests(
+                engine, prompts, {"temperature": 0.8, "top_k": 40, "seed": 77},
+                SPEC_MAX_TOKENS)
+            if record["mismatches"]:
+                raise AssertionError(f"{tag}: accepted greedy drafts off the window's "
+                                     f"argmax: {record['mismatches'][:3]}")
+            if greedy["spec_proposed"] <= 0:
+                raise AssertionError(f"{tag}: no drafts were proposed")
+            leg["windows"] = {k2: v for k2, v in record.items() if k2 != "mismatches"}
+        leg["profile"] = profile_spec(engine, prof_prompts)
+        if extras and not k:
+            leg["extras"] = check_logprobs(engine)
+        for part in ("greedy", "sampled"):
+            if part in leg:
+                leg[part].pop("results")
+        out[side] = leg
+        p = leg["profile"]
+        g = leg["greedy"]
+        sampled = leg.get("sampled")
+        log(f"  {tag}, speculation {side}: greedy {len(prompts)} x {SPEC_MAX_TOKENS} tokens in "
+            f"{g['wall_s']:.3f} s over {g['sched_delta']['steps']} steps, drafts proposed "
+            f"{g['spec_proposed']} accepted {g['spec_accepted']}"
+            + (f" (sampled: {sampled['spec_proposed']} / {sampled['spec_accepted']})"
+               if sampled else "")
+            + f"; SSE decode {[round(x, 1) for x in g['decode_tok_s']]} tok/s per stream; "
+            f"greedy gap {gap:.4f}; {g['ragged_forwards']} ragged forwards, one walk "
+            f"launch per layer each")
+        log(f"    step, 8 rows: {p['wall_ms_per_step']:.3f} ms wall, "
+            f"{p['cpu_ms_per_step']:.3f} ms thread CPU, {p['device_ms_per_step']:.3f} ms on "
+            f"the device (busy {p['device_busy_share']:.4f}) on {card}; "
+            f"{p['tokens_per_row_step']:.3f} tokens per row and step (drafts "
+            f"{p['spec_proposed']} proposed, {p['spec_accepted']} accepted); walk "
+            f"{p['walk_ms_per_step']:.4f} ms/step, launches {p['walk_kernels_per_step']}")
+        if list(p["walk_kernels_per_step"].values()) != [engine.cfg.n_layers]:
+            raise AssertionError(f"{tag}: walk kernels {p['walk_kernels_per_step']}, "
+                                 f"expected one kernel launched {engine.cfg.n_layers} "
+                                 "times a step")
+        del engine
+        torch.cuda.empty_cache()
+    on, off = out["on"]["greedy"]["token_ids"], out["off"]["greedy"]["token_ids"]
+    out["first_difference"] = [first_difference(a, b) for a, b in zip(on, off)]
+    log(f"  {tag}: first index at which the greedy streams with speculation on and off "
+        f"differ, per request: {out['first_difference']}")
+    if extras:
+        ex = out["off"]["extras"]
+        log(f"  logprobs 3 + logit_bias request: token_logprobs "
+            f"{[round(x, 4) for x in ex['logprobs_request']['token_logprobs']]}; top of the "
+            f"first token {ex['logprobs_request']['top_logprobs'][0]}; a seeded top-k "
+            f"stream served twice identical ({MAX_TOKENS} tokens)")
+    return out
+
+
 def kernel_row(name: str, source: str, replaces: int, launches: int, res: dict) -> dict:
     return {"name": name, "route": "cuda", "source": f"fusioninfer_tpu_torch/csrc/{source}",
             "replaces": f"fusioninfer_tpu/ops/{replaces}", "launches": launches,
@@ -1485,16 +1908,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/8] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    log(f"[1/9] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     _build.build_all()
-    log(f"[2/8] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
+    log(f"[2/9] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log(f"[3/8] kernels against their plain versions (bf16 and int8 pages, |err| <= "
+    log(f"[3/9] kernels against their plain versions (bf16 and int8 pages, |err| <= "
         f"{RTOL}·|ref| + row_tol·rms(row), row_tol {FLASH_ROW_TOL} flash / {PAGED_ROW_TOL} "
         f"page walks and decode / {WINDOW_ROW_TOL} prefill and verify; times: median "
         f"CUDA-event ms on {card})")
@@ -1545,10 +1968,27 @@ def main() -> int:
         f"T520 launch (both walks, bf16 and int8, single walk at the engine's CL {fixed_cl}); "
         f"rows whose bits the shape rule alone would move: "
         f"{bits['rows_moved_by_shape_rule']}")
+    # the speculative step's shape: the engine's cluster size (fixed from its
+    # 8 slots, speculation on or off) first, then the size fixed from the
+    # step's 8 x (1 + SPEC_K) tokens
+    spec_cl = fixed_cl
+    spec_cls = (spec_cl, engine_cluster_size(8 * (1 + SPEC_K), KV_HEADS, 32, "cuda"))
+    spec_shape = {(split, int8): check_spec_shape(gen, split, int8, spec_cls)
+                  for int8 in (False, True) for split in (False, True)}
+    for (split, int8), res in spec_shape.items():
+        pages = "int8" if int8 else "bf16"
+        by_cl = ("" if split else " (by cluster size: " + ", ".join(
+            f"CL {cl} {ms:.4f} ms" for cl, ms in res["ms_by_cluster"].items()) + ")")
+        log(f"  spec shape, {'split walk' if split else 'single walk'} {pages}: "
+            f"{res['ms']:.4f} ms{by_cl}, bound {res['bound_ms']:.4f} ms, sdpa "
+            f"{res['library_ms']} ms")
+    spec_bits = check_spec_bits(gen, spec_cl)
+    log(f"  {spec_bits} decode rows bit-identical whether their neighbours carry 0 or "
+        f"{SPEC_K} drafts (both walks, bf16 and int8, single walk at CL {spec_cl})")
     del cases
     torch.cuda.empty_cache()
 
-    log("[4/8] serve qwen3-8b at full width, max-model-len 4096")
+    log("[4/9] serve qwen3-8b at full width, max-model-len 4096")
     cfg = get_preset("qwen3-8b")
     t0 = time.perf_counter()
     # phases 4-6 serve as the earlier slices did: no prefix cache, no token
@@ -1570,7 +2010,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[5/8] single page walk: same weights, max-model-len 2048")
+    log("[5/9] single page walk: same weights, max-model-len 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda",
                                                  prefix_caching=False),
                           max_batch_size=8, params=params, device="cuda", **legacy)
@@ -1584,7 +2024,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[6/8] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
+    log("[6/9] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
         "then 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda", "int8",
                                                  prefix_caching=False),
@@ -1605,7 +2045,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[7/8] prefix caching, chunked prefill and fused steps (the serve defaults, "
+    log(f"[7/9] prefix caching, chunked prefill and fused steps (the serve defaults, "
         f"--tokens-per-step {TOKENS_PER_STEP}): same weights, bf16 pages at 4096 (split "
         "walk) and 2048 (single walk), int8 pages at 2048")
     serve7 = {}
@@ -1623,8 +2063,29 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
+    log(f"[8/9] speculative decoding (--speculative-ngram {SPEC_K}), extractive prompts, "
+        f"greedy then seeded sampled, against the same engine without speculation: same "
+        f"weights, bf16 pages at 4096 (split walk) and 2048 (single walk), int8 pages at "
+        f"2048")
+    serve8 = {}
+    for max_len, kv_dtype in ((4096, "model"), (2048, "model"), (2048, "int8")):
+        tag = f"{'int8' if kv_dtype == 'int8' else 'bf16'}_{max_len}"
+
+        def make_engine(k, max_len=max_len, kv_dtype=kv_dtype, tag=tag):
+            engine = NativeEngine(cfg, auto_cache_config(cfg, 128, max_len, 8, "cuda",
+                                                         kv_dtype),
+                                  max_batch_size=8, params=params, device="cuda",
+                                  token_budget=TOKENS_PER_STEP, speculative_k=k)
+            if engine.walk_cluster not in (None, spec_cl) or engine.spec_k != k:
+                raise AssertionError(f"{tag}: cluster {engine.walk_cluster}, spec {k}")
+            return engine
+
+        serve8[tag] = serve_spec_leg(make_engine, tag, card, extras=tag == "bf16_4096")
+
     pa_py = "paged_attention.py"
-    legs = [serve4, serve5, serve6, serve6s, *serve7.values()]
+    legs = [serve4, serve5, serve6, serve6s, *serve7.values(),
+            *(leg[side][part] for leg in serve8.values() for side in ("on", "off")
+              for part in ("greedy", "sampled") if part in leg[side])]
 
     def served(name):  # launches over every serve leg
         return sum(leg["launches"][name] for leg in legs)
@@ -1670,8 +2131,12 @@ def main() -> int:
                                    for (sp, q8), r in fused_shape.items()},
                    "fused_bits": bits, "fixed_cluster": fixed_cl,
                    "prefix_legs": serve7,
+                   "spec_shape": {f"{'split' if sp else 'single'}{'_int8' if q8 else ''}": r
+                                  for (sp, q8), r in spec_shape.items()},
+                   "spec_bits_rows": spec_bits, "spec_cluster": spec_cl,
+                   "spec_legs": serve8,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[8/8] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[9/9] done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,7 @@
         [--device cuda] [--max-model-len 4096] [--kv-cache-dtype int8] \\
         [--no-prefix-caching] [--prefill-chunk-size N] \\
         [--tokens-per-step N | --no-token-budget] [--no-fused-step] \\
-        [--port 8000] [--seed 0]
+        [--speculative-ngram K] [--port 8000] [--seed 0]
 
 ``engine serve`` runs on the card unless ``--device cpu`` is given; with
 no CUDA device it raises instead of falling back to the CPU.
@@ -62,6 +62,14 @@ def build_parser() -> argparse.ArgumentParser:
                             "weights stream from memory once per step "
                             "(--no-fused-step: a chunk forward, then a "
                             "decode forward)")
+    serve.add_argument("--speculative-ngram", type=int, default=0, metavar="K",
+                       help="n-gram prompt-lookup speculative decoding: "
+                            "propose up to K draft tokens per sequence from "
+                            "its own context and score them in the decode "
+                            "step's forward (0 = off); greedy outputs "
+                            "are token-identical on the CPU, and on CUDA "
+                            "can part at a near-tie, as the GEMM's M "
+                            "changes with the drafts")
     serve.add_argument("--seed", type=int, default=0,
                        help="seed of the random weights")
     serve.add_argument("--host", default="0.0.0.0")

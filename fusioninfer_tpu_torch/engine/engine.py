@@ -25,11 +25,27 @@ sequence one token per :meth:`NativeEngine.step`.  As in the JAX engine:
   or mid-prefill, never one older than the work displacing it.  With
   prefix caching its written pages are parked as cached content first,
   so its re-admission recomputes at most one page.
+* **Speculative decoding** (``speculative_k``): n-gram drafts from a
+  row's own context (:class:`engine.spec.NgramProposer`) ride its decode
+  window, the input token and up to k drafts scored by the same ragged
+  forward; every live row rides a window of ``1 + k`` slots.  A greedy
+  row accepts drafts while they equal the window's argmax; a sampled row
+  by delta-draft rejection sampling (:func:`sampler.spec_window_draws`).
+  Rows with penalties, logprobs or ``logit_bias``, or still under
+  ``min_tokens``, take no drafts.
+* **The candidate sampler**: a row with ``0 < top_k <= 64`` and
+  ``min_p`` off draws from its 64 best logits in ``lax.top_k``'s order
+  (:func:`sampler.sample_topk`), as the JAX engine's fused lm_head
+  top-k path and its unfused sampler both do.  The port has the one
+  decode tail: the lm_head product already runs as one GEMM over the
+  slot rows, so projecting inside the sampler would only move it.
+* **logprobs and logit_bias**: logprobs come from the raw
+  (unpenalized) logits; a request's bias is added after the penalties
+  and the min-tokens suppression, at admission and every decode step.
 
-Left out, and absent rather than switched off: speculative decoding,
-fused sampling, decode bursts, LoRA, guided decoding, SLO tiers and
-priorities (the wait queue orders by arrival), deadlines, the host KV
-tier and the PD/KV fabric.
+Left out, and absent rather than switched off: decode bursts, LoRA,
+guided decoding, SLO tiers and priorities (the wait queue orders by
+arrival), deadlines, the host KV tier and the PD/KV fabric.
 
 Concurrency: one engine-loop thread owns all scheduling state and is the
 only caller of :meth:`step`; other threads enter only through the locked
@@ -66,8 +82,11 @@ from fusioninfer_tpu_torch.engine.sampler import (
     SamplingParams,
     apply_penalties,
     sample,
+    spec_window_draws,
+    topk_ordered,
 )
 from fusioninfer_tpu_torch.engine.sched import TokenBudget, derive_token_budget
+from fusioninfer_tpu_torch.engine.spec import NgramProposer
 from fusioninfer_tpu_torch.models.config import ModelConfig
 from fusioninfer_tpu_torch.models.transformer import init_params
 from fusioninfer_tpu_torch.ops.paged_attention import (
@@ -118,6 +137,8 @@ class StepOutput:
     finished: bool
     finish_reason: Optional[str] = None
     is_first_token: bool = False
+    logprob: Optional[float] = None  # set when the request asked for logprobs
+    top_logprobs: Optional[dict[int, float]] = None  # token id -> logprob
 
 
 @dataclass
@@ -186,7 +207,8 @@ class NativeEngine:
                  enable_prefix_caching: bool = True,
                  prefill_chunk_size: Optional[int] = None,
                  token_budget: Optional[int] = None,
-                 fused_step: bool = True):
+                 fused_step: bool = True,
+                 speculative_k: Optional[int] = None):
         """``device``: where weights, pool and every forward live; None
         means ``cuda`` (raises without CUDA).  ``params``: the port's
         parameter dict (e.g. from :func:`convert.params_from_jax`), moved
@@ -204,7 +226,11 @@ class NativeEngine:
         None with no chunk size means monolithic prefill.
         ``fused_step``: a step with both decode rows and prefill chunks
         runs them in one forward; output streams are the same either
-        way."""
+        way.  ``speculative_k``: n-gram speculative decoding with up to
+        this many drafts a row and step (None = off); greedy streams are
+        token-identical with it on or off on the CPU, and on CUDA can
+        part at a near-tie (the lm_head GEMM's M changes with the drafts,
+        and cuBLAS may pick another kernel)."""
         self.cfg = cfg.validate()
         self.cache_cfg = (cache_cfg or CacheConfig()).validate()
         self.device = resolve_device(device)
@@ -225,7 +251,10 @@ class NativeEngine:
         self.kv_splits = (pick_kv_splits(mp, self.cache_cfg.page_size)
                           if kv_splits is None else kv_splits)
         # the single walk's cluster size, fixed once from static shapes so
-        # that a row's bits never depend on what shares its launch
+        # that a row's bits never depend on what shares its launch; sized
+        # for one token a slot also when the slots carry spec windows
+        # (measured faster at that shape than the size fixed from
+        # B·(1 + speculative_k) tokens, PERF.md)
         self.walk_cluster = (engine_cluster_size(max_batch_size, cfg.n_kv_heads,
                                                  mp, self.device)
                              if self.kv_splits == 0 else None)
@@ -265,6 +294,13 @@ class NativeEngine:
             self.prefill_chunk = token_budget
         self._step_prefill_left = 0  # set by step(); spent by _admit
         self.fused_step_enabled = fused_step
+        if speculative_k is not None and speculative_k < 1:
+            raise ValueError("speculative_k must be >= 1")
+        self.spec_k = speculative_k
+        self.proposer = NgramProposer() if speculative_k else None
+        # slot -> (ids, vals) device tensors of a request's logit_bias,
+        # built once at activation
+        self._slot_bias: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         # counters (stats / the server's /health)
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
@@ -272,6 +308,10 @@ class NativeEngine:
         self.finished_total = 0
         self.errors_total = 0
         self.cancelled_total = 0
+        # drafts proposed and accepted, counting emitted drafts only (a
+        # finish mid-window discards the rest)
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
 
     # -- public API ----------------------------------------------------------
 
@@ -366,10 +406,13 @@ class NativeEngine:
         is on, else a chunk forward and a decode forward."""
         self._process_cancellations()
         # the budget is charged with the running batch's decode tokens
-        # first; _admit and the chunk advance spend the remainder
+        # first; _admit and the chunk advance spend the remainder.  A
+        # speculating row may score 1 + speculative_k tokens: the worst
+        # case is charged, so a step never overruns its budget
+        per_row = 1 + (self.spec_k or 0)
         self._step_prefill_left = self.sched.begin_step(
-            sum(1 for st in self.running.values()
-                if st.n_generated < st.request.params.max_tokens))
+            per_row * sum(1 for st in self.running.values()
+                          if st.n_generated < st.request.params.max_tokens))
         outputs = self._admit()
         if self._use_fused_step():
             outputs += self._fused_step()
@@ -650,8 +693,8 @@ class NativeEngine:
     def _ragged_forward(self, packed):
         """Dispatch ONE flat ragged forward and charge its weight pass →
         ``(logits [B, W, V], chunk_logits [NC, V])``.  Every engine forward
-        that reads paged context (decode rows, chunk advances, cache-hit
-        suffixes, mixed steps) lands here."""
+        that reads paged context (decode rows and their spec windows, chunk
+        advances, cache-hit suffixes, mixed steps) lands here."""
         arrays = (packed.tokens, packed.row_starts, packed.q_begins,
                   packed.q_lens, packed.page_tables, packed.sel, packed.chunk_sel)
         logits, chunk_logits = fused_step(
@@ -774,26 +817,28 @@ class NativeEngine:
 
     def _fused_step(self) -> list[StepOutput]:
         """Advance every mid-prefill sequence one budgeted chunk AND decode
-        the running batch in ONE forward: rows 0..B-1 are the decode slots,
-        rows B.. the chunk windows.  Chunk activations are emitted first,
-        then the decode tokens, as on the split path.  A failed forward
-        fails the chunk rows and decodes split this step."""
+        the running batch in ONE forward: rows 0..B-1 are the decode slots
+        (spec windows included), rows B.. the chunk windows.  Chunk
+        activations are emitted first, then the decode tokens, as on the
+        split path.  A failed forward fails the chunk rows and decodes
+        split this step."""
         failures = self._ensure_decode_capacity()
         live = self._live()
         if not live or not self.prefilling:
             # preemption took one row kind away since step()'s gate
             return failures + self._advance_prefilling() + self._decode()
         take, chunks = self._chunk_plan()
-        tokens, counts, positions, tables = self._decode_rows(live)
+        spec_drafts = self._propose_drafts(live) if self.spec_k else {}
+        window, counts, positions, tables = self._decode_window(live, spec_drafts)
         entries = [(st.prefix[st.pos: st.pos + chunks[i]], st.pos,
                     self.alloc.page_table_row(st.request.request_id), 0)
                    for i, st in enumerate(take)]
         packed = pack_ragged_batch(
-            tokens[:, None], counts, positions, tables,
-            np.zeros_like(counts), entries, self.cache_cfg.trash_page,
-            rows=self._ragged_rows, chunk_rows=self._ragged_chunk_rows)
+            window, counts, positions, tables, np.zeros_like(counts), entries,
+            self.cache_cfg.trash_page, rows=self._ragged_rows,
+            chunk_rows=self._ragged_chunk_rows)
         try:
-            logits, chunk_logits = self._ragged_forward(packed)
+            logits_w, chunk_logits = self._ragged_forward(packed)
         except (RuntimeError, ValueError) as e:
             logger.exception("fused step of %d chunks failed", len(take))
             self.prefilling = [st for st in self.prefilling if st not in take]
@@ -801,22 +846,22 @@ class NativeEngine:
                     + self._decode())
         self.sched.record_fused(packed.packed_tokens)
         outputs = failures + self._finish_chunks(take, chunks, chunk_logits)
-        return outputs + self._decode_finish(live, logits[:, 0])
+        return outputs + self._decode_finish(live, logits_w, spec_drafts)
 
     # -- activation ----------------------------------------------------------
 
     def _activate_group(self, entries) -> list[StepOutput]:
         """Publish each prompt's pages to the prefix cache, sample its
         first token with its full sampling semantics, claim a slot,
-        install the slot's penalty rows and emit.  ``entries``:
-        ``[(request, prefix, resumed, logits_row [1, V])]``."""
+        install the slot's penalty rows and logit bias and emit.
+        ``entries``: ``[(request, prefix, resumed, logits_row [1, V])]``."""
         logits = torch.cat([row for _, _, _, row in entries])
         B, V = logits.shape
         dev = self.device
         counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
         outs = torch.zeros_like(counts)
         sup = torch.zeros((B, V), dtype=torch.bool, device=dev)
-        seeds, gens = [], []
+        seeds, gens, biases = [], [], []
         for i, (request, prefix, _, _) in enumerate(entries):
             rid = request.request_id
             chain = self._admission_chains.pop(rid, None)
@@ -832,8 +877,10 @@ class NativeEngine:
                 sup[i, list(p.stop_token_ids)] = True
             seeds.append(self._request_seed(request))
             gens.append(len(prefix) - n_prompt)
+            biases.append(self._bias_tensors(p))
         params = [e[0].params for e in entries]
-        tokens = self._sample(logits, params, counts, outs, sup, seeds, gens)
+        tokens, logprobs = self._sample(logits, params, counts, outs, sup, seeds,
+                                        gens, biases)
         outputs = []
         for i, (request, prefix, resumed, _) in enumerate(entries):
             token = tokens[i]
@@ -846,18 +893,37 @@ class NativeEngine:
             self._token_counts[slot] = counts[i]
             self._output_counts[slot] = outs[i]
             self._suppress[slot] = sup[i]
+            if biases[i] is not None:
+                self._slot_bias[slot] = biases[i]
+            else:
+                self._slot_bias.pop(slot, None)
             self.running[slot] = state
             if not resumed:
                 self.prompt_tokens_total += len(prefix)
             self.generation_tokens_total += 1
-            outputs.append(self._emit(state, token, first=not resumed))
+            outputs.append(self._emit(state, token, first=not resumed,
+                                      logprobs=logprobs[i]))
         return outputs
 
+    def _bias_tensors(self, params: SamplingParams):
+        """A request's ``logit_bias`` as ``(ids, vals)`` device tensors, or
+        None."""
+        if not params.logit_bias:
+            return None
+        return (torch.tensor([t for t, _ in params.logit_bias], dtype=torch.int64,
+                             device=self.device),
+                torch.tensor([b for _, b in params.logit_bias], dtype=torch.float32,
+                             device=self.device))
+
     def _sample(self, logits, params: list[SamplingParams], counts, outs, sup,
-                seeds: list[int], gen_counts: list[int]) -> list[int]:
-        """Penalties → min-tokens suppression → sample, for rows aligned
-        with ``params`` (host ints out)."""
+                seeds: list[int], gen_counts: list[int], biases):
+        """Penalties → min-tokens suppression → logit bias → sample, for
+        rows aligned with ``params`` (``biases[i]``: row i's
+        ``(ids, vals)`` or None) → ``(host tokens, logprobs)``, where
+        ``logprobs[i]`` is None unless row i asked for them
+        (:meth:`_logprobs`, off the raw ``logits``)."""
         dev = self.device
+        raw = logits
 
         def col(vals, dtype):
             return torch.tensor(vals, dtype=dtype, device=dev)
@@ -872,13 +938,37 @@ class NativeEngine:
         if any(early):
             logits = torch.where(col(early, torch.bool)[:, None] & sup,
                                  torch.tensor(float("-inf"), device=dev), logits)
-        toks = sample(logits,
-                      col([p.temperature for p in params], torch.float32),
-                      col([p.top_k for p in params], torch.int64),
-                      col([p.top_p for p in params], torch.float32),
-                      col([p.min_p for p in params], torch.float32),
-                      seeds, gen_counts)
-        return [int(t) for t in toks.tolist()]
+        if any(b is not None for b in biases):
+            logits = logits.clone()
+            for i, b in enumerate(biases):
+                if b is not None:
+                    logits[i].index_add_(0, b[0], b[1])
+        toks = sample(logits, [p.temperature for p in params],
+                      [p.top_k for p in params], [p.top_p for p in params],
+                      [p.min_p for p in params], seeds, gen_counts)
+        return ([int(t) for t in toks.tolist()],
+                self._logprobs(raw, [p.logprobs for p in params], toks))
+
+    @staticmethod
+    def _logprobs(raw, ns: list[Optional[int]], toks):
+        """Per row: None where ``ns[i]`` is None, else ``(logprob of the
+        chosen token, {token id: logprob} of the top ``ns[i]`` or None for
+        0)`` under ``log_softmax`` of the raw logits ``raw [N, V]``, the
+        top ones in :func:`sampler.topk_ordered`'s order."""
+        out: list = [None] * len(ns)
+        rows = [i for i, n in enumerate(ns) if n is not None]
+        if not rows:
+            return out
+        sel = torch.tensor(rows, device=raw.device)
+        logp = torch.log_softmax(raw[sel].float(), dim=-1)
+        chosen = torch.gather(logp, 1, toks[sel][:, None])[:, 0].tolist()
+        n_top = max(ns[i] for i in rows)
+        if n_top:
+            vals, ids = (t.tolist() for t in topk_ordered(logp, n_top))
+        for j, i in enumerate(rows):
+            tops = (dict(zip(ids[j][: ns[i]], vals[j][: ns[i]])) if ns[i] else None)
+            out[i] = (chosen[j], tops)
+        return out
 
     # -- decode --------------------------------------------------------------
 
@@ -886,23 +976,28 @@ class NativeEngine:
         return {s: st for s, st in self.running.items()
                 if st.n_generated < st.request.params.max_tokens}
 
-    def _decode_rows(self, live: dict):
-        """Per-slot decode rows (dead slots: zero-length, trash pages):
-        input tokens [B], window lengths [B], positions [B], tables
-        [B, mp], all int32."""
+    def _decode_window(self, live: dict, spec_drafts: dict):
+        """Per-slot decode windows (dead slots: zero-length, trash pages):
+        the input token and, with speculation on, the slot's drafts, in a
+        window of ``1 + speculative_k`` columns even on steps without
+        drafts, so a row's window never depends on a neighbour's drafts →
+        window [B, W], window lengths [B], positions [B] (of column 0),
+        tables [B, mp], all int32."""
         B = self.max_batch_size
-        tokens = np.zeros((B,), np.int32)
+        window = np.zeros((B, 1 + (self.spec_k or 0)), np.int32)
         counts = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
         tables = np.full((B, self.cache_cfg.max_pages_per_seq),
                          self.cache_cfg.trash_page, np.int32)
         for slot, st in live.items():
-            tokens[slot] = st.tokens[-1]
-            counts[slot] = 1
+            drafts = spec_drafts.get(slot, [])
+            window[slot, 0] = st.tokens[-1]
+            window[slot, 1: 1 + len(drafts)] = drafts
+            counts[slot] = 1 + len(drafts)
             # the input token was sampled last step; its KV lands at len-1
             positions[slot] = len(st.tokens) - 1
             tables[slot] = self.alloc.page_table_row(st.request.request_id)
-        return tokens, counts, positions, tables
+        return window, counts, positions, tables
 
     def _decode(self) -> list[StepOutput]:
         """Decode the running batch: the same ragged forward as the fused
@@ -911,34 +1006,154 @@ class NativeEngine:
         live = self._live()
         if not live:
             return failures
-        tokens, counts, positions, tables = self._decode_rows(live)
+        spec_drafts = self._propose_drafts(live) if self.spec_k else {}
+        window, counts, positions, tables = self._decode_window(live, spec_drafts)
         packed = pack_ragged_batch(
-            tokens[:, None], counts, positions, tables, np.zeros_like(counts),
-            [], self.cache_cfg.trash_page, rows=self._ragged_rows, chunk_rows=0)
-        logits, _ = self._ragged_forward(packed)
-        return failures + self._decode_finish(live, logits[:, 0])
+            window, counts, positions, tables, np.zeros_like(counts), [],
+            self.cache_cfg.trash_page, rows=self._ragged_rows, chunk_rows=0)
+        logits_w, _ = self._ragged_forward(packed)
+        return failures + self._decode_finish(live, logits_w, spec_drafts)
 
-    def _decode_finish(self, live: dict, logits: torch.Tensor) -> list[StepOutput]:
+    # -- speculative decoding ------------------------------------------------
+
+    def _spec_eligible(self, st: _SeqState) -> bool:
+        """Speculation stays where it cannot change what a row emits:
+        no penalties (they would need counts that evolve inside the
+        window), no logprobs, no ``logit_bias`` (window scoring ignores
+        it), past ``min_tokens``."""
+        p = st.request.params
+        return (p.presence_penalty == 0.0
+                and p.frequency_penalty == 0.0
+                and p.repetition_penalty == 1.0
+                and p.logprobs is None
+                and not p.logit_bias
+                and st.n_generated >= p.min_tokens)
+
+    def _propose_drafts(self, live: dict) -> dict[int, list[int]]:
+        """Each eligible live row's drafts, at most ``speculative_k`` and
+        leaving room for the bonus token within ``max_tokens`` and the
+        engine's ``max_len``.  Pages are extended for the window one
+        token at a time off its end: drafts shrink rather than preempt
+        anyone, so speculation never costs another row its pages."""
+        spec_drafts: dict[int, list[int]] = {}
+        for slot, st in live.items():
+            if not self._spec_eligible(st):
+                continue
+            room = min(st.request.params.max_tokens - st.n_generated - 1,
+                       self.spec_k, self.cache_cfg.max_len - len(st.tokens))
+            if room < 1:
+                continue
+            drafts = self.proposer.propose(st.tokens, room)
+            while drafts:
+                try:
+                    self.alloc.extend(st.request.request_id, len(st.tokens) - 1,
+                                      1 + len(drafts))
+                    break
+                except MemoryError:
+                    drafts.pop()
+            if drafts:
+                spec_drafts[slot] = drafts
+        return spec_drafts
+
+    def _spec_bursts(self, live: dict, logits_w, spec_drafts: dict) -> dict:
+        """Each drafted row's accepted drafts and the token after them →
+        ``{slot: (burst tokens, accepted)}``.  A greedy row accepts while
+        its draft equals the window's argmax at that position and ends
+        with the argmax after the last accepted one (the tokens sequential
+        greedy steps emit).  A sampled row accepts while ``u < p_draft``
+        (:func:`sampler.spec_window_draws`) and ends with the replacement
+        at the first rejection, or the bonus draw after all."""
+        slots = list(spec_drafts)
+        dev = self.device
+        argmax_w = logits_w[torch.tensor(slots, device=dev)].argmax(dim=-1).tolist()
+        sampled = [s for s in slots if live[s].request.params.temperature > 0.0]
+        draws = {}
+        if sampled:
+            C = 1 + self.spec_k
+            draft_next = np.zeros((len(sampled), C), np.int64)
+            for i, s in enumerate(sampled):
+                draft_next[i, : len(spec_drafts[s])] = spec_drafts[s]
+            params = [live[s].request.params for s in sampled]
+            out = spec_window_draws(
+                logits_w[torch.tensor(sampled, device=dev)].float(),
+                self._tensor(draft_next), [p.temperature for p in params],
+                [p.top_k for p in params], [p.top_p for p in params],
+                [p.min_p for p in params], [live[s].seed for s in sampled],
+                [live[s].n_generated for s in sampled])
+            # one copy to the host; f64 holds the vocab ids and the f32
+            # probabilities exactly
+            host = torch.stack([t.double() for t in out]).cpu().numpy()
+            draws = {s: host[:, i] for i, s in enumerate(sampled)}
+        bursts = {}
+        for i, slot in enumerate(slots):
+            drafts = spec_drafts[slot]
+            accepted = 0
+            if slot in draws:
+                full, p_draft, u, repl = draws[slot]
+                while accepted < len(drafts) and u[accepted] < p_draft[accepted]:
+                    accepted += 1
+                tail = int(repl[accepted] if accepted < len(drafts)
+                           else full[len(drafts)])
+            else:
+                while accepted < len(drafts) and drafts[accepted] == argmax_w[i][accepted]:
+                    accepted += 1
+                tail = argmax_w[i][accepted]
+            bursts[slot] = (drafts[:accepted] + [tail], accepted)
+        return bursts
+
+    # -- decode sampling -----------------------------------------------------
+
+    def _decode_finish(self, live: dict, logits_w, spec_drafts: dict) -> list[StepOutput]:
         """The decode sampling tail shared by the split and fused paths,
-        off slot-aligned logits [B, V]."""
-        slots = list(live)
-        idx = torch.tensor(slots, device=self.device)
-        params = [live[s].request.params for s in slots]
-        sampled = self._sample(
-            logits[idx], params, self._token_counts[idx], self._output_counts[idx],
-            self._suppress[idx], [live[s].seed for s in slots],
-            [live[s].n_generated for s in slots])
-        tok_t = torch.tensor(sampled, device=self.device)
-        self._token_counts[idx, tok_t] += 1
-        self._output_counts[idx, tok_t] += 1
-        self.sched.charge_decode(len(live))
-        outputs = []
-        for slot, token in zip(slots, sampled):
-            st = live[slot]
-            st.tokens.append(token)
-            self.generation_tokens_total += 1
-            outputs.append(self._emit(st, token))
+        off slot-aligned logits [B, W, V]: a row without drafts samples
+        off position 0 (:meth:`_sample`: penalties, min-tokens
+        suppression, logit bias, logprobs); a drafted row emits its burst
+        (:meth:`_spec_bursts`) up to a finish.  Charges the decode tokens
+        the forward scored, ``len(live) + Σ drafts``."""
+        one = [s for s in live if s not in spec_drafts]
+        sampled = {}
+        if one:
+            idx = torch.tensor(one, device=self.device)
+            params = [live[s].request.params for s in one]
+            toks, lps = self._sample(
+                logits_w[idx, 0], params, self._token_counts[idx],
+                self._output_counts[idx], self._suppress[idx],
+                [live[s].seed for s in one], [live[s].n_generated for s in one],
+                [self._slot_bias.get(s) for s in one])
+            sampled = {s: (t, lp) for s, t, lp in zip(one, toks, lps)}
+        bursts = self._spec_bursts(live, logits_w, spec_drafts) if spec_drafts else {}
+        self.sched.charge_decode(len(live) + sum(len(d) for d in spec_drafts.values()))
+        outputs, bumped = [], []
+        for slot, st in live.items():
+            if slot not in bursts:
+                token, lp = sampled[slot]
+                st.tokens.append(token)
+                bumped.append((slot, token))
+                self.generation_tokens_total += 1
+                outputs.append(self._emit(st, token, logprobs=lp))
+                continue
+            burst, accepted = bursts[slot]
+            self.spec_proposed_total += len(spec_drafts[slot])
+            for i, token in enumerate(burst):
+                st.tokens.append(token)
+                bumped.append((slot, token))
+                self.generation_tokens_total += 1
+                if i < accepted:
+                    self.spec_accepted_total += 1
+                outputs.append(self._emit(st, token))
+                if outputs[-1].finished:
+                    break
+        self._bump_counts(bumped)
         return outputs
+
+    def _bump_counts(self, pairs: list[tuple[int, int]]) -> None:
+        """Count emitted ``(slot, token)`` pairs into both penalty tables."""
+        if not pairs:
+            return
+        slot_t, tok_t = self._tensor(np.asarray(pairs, np.int64).T)
+        ones = torch.ones(len(pairs), dtype=torch.int32, device=self.device)
+        self._token_counts.index_put_((slot_t, tok_t), ones, accumulate=True)
+        self._output_counts.index_put_((slot_t, tok_t), ones, accumulate=True)
 
     def _ensure_decode_capacity(self) -> list[StepOutput]:
         """Grow page tables for rows crossing a page boundary; on
@@ -993,8 +1208,9 @@ class NativeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _emit(self, state: _SeqState, token: int,
-              first: bool = False) -> StepOutput:
+    def _emit(self, state: _SeqState, token: int, first: bool = False,
+              logprobs: Optional[tuple] = None) -> StepOutput:
+        """``logprobs``: ``(logprob, top_logprobs)`` of a row that asked."""
         params = state.request.params
         finish_reason = None
         if token in params.stop_token_ids:
@@ -1003,9 +1219,11 @@ class NativeEngine:
             finish_reason = "length"
         if finish_reason:
             self._finish(state)
+        lp, tops = logprobs if logprobs is not None else (None, None)
         return StepOutput(request_id=state.request.request_id, token=token,
                           finished=finish_reason is not None,
-                          finish_reason=finish_reason, is_first_token=first)
+                          finish_reason=finish_reason, is_first_token=first,
+                          logprob=lp, top_logprobs=tops)
 
     def _finish(self, state: _SeqState, outcome: str = "finished") -> None:
         self.running.pop(state.slot, None)

@@ -120,7 +120,11 @@ class TokenBudget:
     def begin_step(self, decode_charge: int) -> int:
         """Open a step's ledger: charge the running batch's decode
         tokens first and return the PREFILL remainder.  With no budget
-        configured the remainder is unbounded (monolithic semantics)."""
+        configured the remainder is unbounded (monolithic semantics).
+        The engine charges ``1 + speculative_k`` tokens per live row with
+        speculation on (the worst case a window scores) and books what
+        the forward did score, ``len(live) + Σ drafts``, through
+        :meth:`charge_decode`."""
         self.steps_total += 1
         if self.tokens_per_step is None:
             return 1 << 30

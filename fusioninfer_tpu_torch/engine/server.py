@@ -30,8 +30,25 @@ _STREAM_IDLE_TIMEOUT_S = 300.0
 
 # request fields of the OpenAI surface this slice does not serve yet;
 # a request naming one gets a 400 rather than a silently different answer
-_UNSUPPORTED = ("logprobs", "logit_bias", "response_format", "echo", "tools",
-                "suffix", "best_of")
+_UNSUPPORTED = ("response_format", "echo", "tools", "suffix", "best_of")
+
+
+def _piece(tokenizer, token: int) -> str:
+    """A token's text form; ids with no printable form get a unique
+    placeholder so top-logprob maps never collapse distinct tokens."""
+    return tokenizer.decode([token]) or f"<token_{token}>"
+
+
+def _top_lp_by_text(tokenizer, tops: dict) -> dict:
+    """Token-id→logprob map rendered text-keyed.  Distinct ids can share
+    a text form; keep the best logprob per text, so a greedy stream's
+    chosen token always equals the max of its own top-logprobs row."""
+    out: dict[str, float] = {}
+    for t, lp in tops.items():
+        text = _piece(tokenizer, t)
+        if text not in out or lp > out[text]:
+            out[text] = lp
+    return out
 
 
 class _RequestChannel:
@@ -163,6 +180,16 @@ class EngineServer:
         min_p = float(body.get("min_p", 0.0))
         if not 0.0 <= min_p <= 1.0:
             raise ValueError("min_p must be in [0, 1]")
+        logprobs = body.get("logprobs")
+        if logprobs is not None:
+            logprobs = max(0, min(int(logprobs), 5))  # OpenAI caps at 5
+        lb = body.get("logit_bias") or {}
+        if not isinstance(lb, dict):
+            raise ValueError("logit_bias must be an object of token-id: bias")
+        logit_bias = tuple((int(t), max(-100.0, min(100.0, float(b))))  # OpenAI clamps
+                           for t, b in lb.items())
+        if any(not 0 <= t < vocab for t, _ in logit_bias):
+            raise ValueError(f"logit_bias token ids must be in [0, {vocab})")
         mt = body.get("max_tokens")
         if mt is None:
             mt = body.get("max_completion_tokens")
@@ -180,6 +207,8 @@ class EngineServer:
             frequency_penalty=float(body.get("frequency_penalty", 0.0)),
             repetition_penalty=float(body.get("repetition_penalty", 1.0)),
             seed=int(seed) if seed is not None else None,
+            logprobs=logprobs,
+            logit_bias=logit_bias,
         )
 
     def _prompt(self, body: dict) -> tuple[list[int], SamplingParams]:
@@ -193,7 +222,11 @@ class EngineServer:
     def handle_completion(self, body: dict) -> dict:
         prompt_tokens, params = self._prompt(body)
         rid, chan = self.submit(prompt_tokens, params)
+        # logprob arrays stay index-aligned with `tokens`, so every trim
+        # below applies to all three
         tokens: list[int] = []
+        token_lps: list = []
+        top_lps: list = []
         finish_reason = "length"
         stop_cut = None
         finished = False
@@ -205,6 +238,8 @@ class EngineServer:
                     finish_reason, finished = out.finish_reason, True
                     break
                 tokens.append(out.token)
+                token_lps.append(out.logprob)
+                top_lps.append(out.top_logprobs or {})
                 if params.stop_strings:
                     full = self.tokenizer.decode(tokens)
                     hit = _find_stop(full, params.stop_strings)
@@ -216,19 +251,28 @@ class EngineServer:
         finally:
             self._release(rid, finished)
         if finish_reason == "stop" and tokens and tokens[-1] == self.tokenizer.eos_token_id:
-            tokens = tokens[:-1]
+            tokens, token_lps, top_lps = tokens[:-1], token_lps[:-1], top_lps[:-1]
         text = self.tokenizer.decode(tokens)
         if stop_cut is not None:
             text = text[:stop_cut]
             while tokens and len(self.tokenizer.decode(tokens[:-1])) >= stop_cut:
-                tokens = tokens[:-1]
+                tokens, token_lps, top_lps = tokens[:-1], token_lps[:-1], top_lps[:-1]
+        logprobs = None
+        if params.logprobs is not None and tokens:
+            logprobs = {
+                "tokens": [_piece(self.tokenizer, t) for t in tokens],
+                "token_logprobs": token_lps,
+                "top_logprobs": [_top_lp_by_text(self.tokenizer, tops) if tops else None
+                                 for tops in top_lps],
+                "text_offset": [],
+            }
         return {
             "id": f"cmpl-{uuid.uuid4().hex[:12]}",
             "object": "text_completion",
             "created": int(time.time()),
             "model": self.model_name,
             "choices": [{"index": 0, "text": text, "finish_reason": finish_reason,
-                         "logprobs": None}],
+                         "logprobs": logprobs}],
             "usage": {"prompt_tokens": len(prompt_tokens),
                       "completion_tokens": len(tokens),
                       "total_tokens": len(prompt_tokens) + len(tokens)},
@@ -270,8 +314,15 @@ class EngineServer:
                     # hold back a split multi-byte character until it completes
                     full = full[:len(full.rstrip("�"))]
                 delta, emitted = full[emitted:], max(emitted, len(full))
+                # a logprobs entry ships only for a token whose text is
+                # delivered (not the trimmed EOS)
+                lp = None
+                if out.logprob is not None and counted:
+                    lp = {"tokens": [_piece(self.tokenizer, out.token)],
+                          "token_logprobs": [out.logprob],
+                          "top_logprobs": [out.top_logprobs or {}]}
                 choice = {"index": 0, "text": delta, "finish_reason": finish,
-                          "logprobs": None}
+                          "logprobs": lp}
                 if counted:
                     choice["token_id"] = out.token
                 yield {"id": completion_id, "object": "text_completion",
@@ -398,9 +449,11 @@ def engine_from_args(args) -> NativeEngine:
     (:meth:`NativeEngine.calibrate_token_budget`) unless
     ``--no-token-budget``, though an explicit ``--prefill-chunk-size``
     still seeds a budget of that many tokens; ``--no-fused-step`` splits
-    mixed steps into a chunk forward and a decode forward.  The split
-    walk engages from the static cache config, and ``--kv-cache-dtype
-    int8`` makes the pages int8."""
+    mixed steps into a chunk forward and a decode forward;
+    ``--speculative-ngram K`` turns n-gram speculative decoding on with up
+    to K drafts a row (0 = off).  The split walk engages from the
+    static cache config, and ``--kv-cache-dtype int8`` makes the pages
+    int8."""
     from fusioninfer_tpu_torch.engine.engine import resolve_device
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
@@ -420,7 +473,8 @@ def engine_from_args(args) -> NativeEngine:
         prefill_chunk_size=args.prefill_chunk_size or None,
         token_budget=(None if args.no_token_budget
                       else args.tokens_per_step or None),
-        fused_step=args.fused_step)
+        fused_step=args.fused_step,
+        speculative_k=args.speculative_ngram or None)
     if not args.no_token_budget and engine.token_budget is None:
         budget = engine.calibrate_token_budget()
         logger.info("token budget derived from measured step latency: "

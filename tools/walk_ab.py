@@ -1,7 +1,7 @@
 """The page walks (single, split) and paged decode of two checkouts of
 the port, timed on one card in turns (A, B, B, A).
 
-    python3 tools/walk_ab.py PATH_A PATH_B
+    python3 tools/walk_ab.py [--toggle ATTR] [--out FILE] PATH_A PATH_B
 
 Each turn runs in a process of its own (both checkouts hold a package of
 one name), builds that checkout's kernels into its own ``build/kernels``,
@@ -13,11 +13,16 @@ tables, the 2048 leg's decode profile), and of the split walk at
 contexts 100…4000 and 101…1501, both over 32-page tables (the 4096
 leg's); then qwen3-8b engines at max-model-len 2048 (the single walk)
 and 4096 (the split walk, on bf16 and on int8 KV pages), random weights
-from seed 0, each through ``chip_smoke.profile_decode`` over 24 steps:
-wall, thread CPU and device ms per decode step and the walk's device ms
-per step.  Both sides build their engines without prefix caching (on a
-demand-sized pool), where the checkout has the option, so that they
-profile one configuration.  The helpers come from this checkout's
+from seed 0, each through ``chip_smoke.profile_decode``, greedy and
+then seeded top-k 40: wall and thread CPU ms per decode step over 24
+steps (a list, one entry per run), then device ms per step and the
+walk's over 8 steps under the profiler.  With ``--toggle ATTR``, on a
+checkout whose engine has the boolean attribute ``ATTR``, each
+decoding's wall and CPU ms are taken with it set True, False, False and
+True, and its device ms once each way.  ``--out FILE`` appends each
+turn's line to FILE as well.  Both sides build their engines without
+prefix caching (on a demand-sized pool), where the checkout has the
+option, so that they profile one configuration.  The helpers come from this checkout's
 ``chip_smoke.py``.  Needs one CUDA card; the first line printed is the
 card's name and power limit.
 """
@@ -32,6 +37,8 @@ import subprocess
 import sys
 import time
 
+# the sampled decode profile: seeded top-k, a candidate row of either path
+SAMPLED = {"temperature": 0.8, "top_k": 40, "seed": 1234}
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CTX_LONG = (100, 600, 1100, 1600, 2100, 2600, 3300, 4000)
 CTX_SERVE = (101, 301, 501, 701, 901, 1101, 1301, 1501)
@@ -56,7 +63,7 @@ def _chip_smoke():
     return cs
 
 
-def one_turn(tree: str) -> dict:
+def one_turn(tree: str, toggle: str | None = None) -> dict:
     """The measurements of one checkout, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -116,13 +123,28 @@ def one_turn(tree: str) -> dict:
                               **_accepted(NativeEngine, enable_prefix_caching=False))
         if (engine.kv_splits != 0) != splits:
             raise RuntimeError(f"max-model-len {max_len}: kv_splits {engine.kv_splits}")
-        prof = cs.profile_decode(engine, n_steps=24)
         leg = f"{max_len}" + (" int8" if kv_dtype == "int8" else "")
-        res[f"{leg} step wall ms"] = prof["wall_ms_per_step"]
-        res[f"{leg} step cpu ms"] = prof["cpu_ms_per_step"]
-        res[f"{leg} step device ms"] = prof["device_ms_per_step"]
-        res[f"{leg} walk ms per step"] = prof["walk_ms_per_step"]
-        res[f"{leg} walk kernels per step"] = prof["walk_kernels_per_step"]
+        # with the toggle in the checkout: wall and CPU ms with it on, off,
+        # off, on, then device ms once each way
+        runs = (((True, False), (False, False), (False, False), (True, False),
+                 (True, True), (False, True)) if toggle and hasattr(engine, toggle)
+                else ((None, False), (None, True)))
+        for decoding, sampling in (("greedy", None), ("top-k 40", SAMPLED)):
+            for on, device in runs:
+                if on is not None:
+                    setattr(engine, toggle, on)
+                prof = cs.profile_decode(engine, n_steps=8 if device else 24,
+                                         sampling=sampling, device=device)
+                key = f"{leg} {decoding}" + ("" if on is None else f" {toggle}={on}")
+                if not device:
+                    for name in ("wall", "cpu"):
+                        res.setdefault(f"{key} step {name} ms", []).append(
+                            prof[f"{name}_ms_per_step"])
+                    continue
+                res[f"{key} step device ms"] = prof["device_ms_per_step"]
+                res[f"{key} walk ms per step"] = prof["walk_ms_per_step"]
+                res[f"{key} walk kernels per step"] = prof["walk_kernels_per_step"]
+                res[f"{key} top kernels ms per step"] = prof["top_kernels_ms_per_step"]
         params = engine.params
         del engine
         torch.cuda.empty_cache()
@@ -130,24 +152,34 @@ def one_turn(tree: str) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 3 and argv[1] == "--turn":
-        print("RESULT", json.dumps(one_turn(argv[2])), flush=True)
+    args = argv[1:]
+    if args[:1] == ["--turn"] and len(args) in (2, 3):
+        print("RESULT", json.dumps(one_turn(*args[1:])), flush=True)
         return 0
-    if len(argv) != 3:
+    opts = {}
+    while len(args) > 2 and args[0] in ("--toggle", "--out"):
+        opts[args[0]], args = args[1], args[2:]
+    if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     print(_chip_smoke().card_line(), flush=True)
-    trees = {"A": argv[1], "B": argv[2]}
+    trees = {"A": args[0], "B": args[1]}
+    toggle = [opts["--toggle"]] if "--toggle" in opts else []
     for name in ("A", "B", "B", "A"):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", trees[name]],
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
+                               trees[name]] + toggle,
+                              capture_output=True, text=True, timeout=1200)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode or not lines:
             print(f"{name} ({trees[name]}): exit {proc.returncode}\n{proc.stderr[-4000:]}",
                   flush=True)
             return 1
-        print(f"{name} {time.perf_counter() - t0:.0f} s {lines[0]}", flush=True)
+        line = f"{name} {time.perf_counter() - t0:.0f} s {lines[0]}"
+        print(line, flush=True)
+        if "--out" in opts:
+            with open(opts["--out"], "a") as f:
+                f.write(line + "\n")
     return 0
 
 
