@@ -81,7 +81,24 @@ Phases, in order; any failure exits non-zero before the result line:
    an engine without speculation on the same prompts, with the first
    index at which the two greedy streams differ; on the first leg, a
    request with ``logprobs: 3`` and a ``logit_bias``, and a seeded top-k
-   stream that must be the same when served twice.
+   stream that must be the same when served twice;
+9. decode bursts (``--decode-burst 8``, pipelined, CUDA graphs), with
+   ``--tokens-per-step 512`` and no prefix cache, on bf16 pages at 4096
+   (split walk) and 2048 (single walk) and on int8 pages at 2048: a
+   greedy and a seeded (temperature 0.8, top_k 40) request served alone,
+   in a full batch of 8 and beside an 1800-token prompt chunked at the
+   budget, on a burst engine, a per-token engine without the fused step
+   and one with it; the first two must serve each request the same
+   tokens in every case and the same as each other, and the fused-step
+   engine's first difference is printed; on the 4096 leg one burst's
+   graph replay must equal eager ``decode_burst`` bit for bit; the wall,
+   thread-CPU and device ms per token of each of 8 streams decoding in
+   bursts (pipelined, and on the 4096 leg unpipelined) and per token, the
+   graphs' capture seconds and pool bytes, and on the 4096 leg a
+   decode-only forward's device ms at 8 and 2 live rows; then ``engine
+   serve`` with the CLI defaults through the server: a cold request's
+   TTFT (it carries the captures), four SSE requests' TTFT and decode
+   tok/s per stream, the burst counters, and the greedy check.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -1123,6 +1140,7 @@ def _post(port: int, body: dict, stream: bool):
         rate = (len(ids) - 1) / (stamps[-1] - stamps[0]) if len(ids) > 1 else None
         return {"tokens": len(ids), "finish": finish, "e2e_s": t1 - t0,
                 "ttft_s": stamps[0] - t0 if stamps else None, "decode_tok_s": rate,
+                "second_token_s": stamps[1] - stamps[0] if len(stamps) > 1 else None,
                 "token_ids": ids}
 
 
@@ -1883,6 +1901,420 @@ def serve_spec_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
     return out
 
 
+# -- phase 9: decode bursts -----------------------------------------------------
+
+BURST = 8
+# the batch-independence check: a greedy and a seeded request, each served
+# alone, in a full batch of 8 and beside a long prompt chunked at the
+# phase's token budget
+A1_TOKENS = 32
+A1_LONG = 1800
+A1_FILLERS = 6
+A1_CASES = ("alone", "batch", "chunk")
+A1_TEXTS = ("A greedy stream served alone, in a full batch and beside a chunked prompt:",
+            "A seeded stream (temperature 0.8, top_k 40) served the same three ways:")
+A1_SEED = 4242
+
+
+def serve_a1_case(engine, case: str) -> tuple[dict, int]:
+    """One case of the batch-independence check on an idle engine:
+    ``alone``; ``batch`` (six greedy fillers running first, so the two
+    decode in a batch of 8); ``chunk`` (an ``A1_LONG``-token prompt added
+    after the two, prefilling in budgeted chunks while they decode).  The
+    two requests are admitted one step apart, each prefilled alone, so
+    their prompts' K/V and first tokens come the same way in every case
+    → ``({request id: tokens}, steps that began with a prompt mid-chunk)``."""
+    from fusioninfer_tpu_torch.engine.engine import Request
+    from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+    from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    reqs = [Request("a1-greedy", tok.encode(A1_TEXTS[0]),
+                    SamplingParams(temperature=0.0, max_tokens=A1_TOKENS)),
+            Request("a1-seeded", tok.encode(A1_TEXTS[1]),
+                    SamplingParams(temperature=0.8, top_k=40, seed=A1_SEED,
+                                   max_tokens=A1_TOKENS))]
+    others = []
+    if case == "batch":
+        for i in range(A1_FILLERS):
+            r = Request(f"a1-fill{i}", tok.encode(f"Filler {i}: " + "pages and keys " * (8 + 5 * i)),
+                        SamplingParams(temperature=0.0, max_tokens=A1_TOKENS + 2 * BURST))
+            engine.add_request(r)
+            others.append(r.request_id)
+        for _ in range(50):
+            engine.step()
+            if engine.num_running == A1_FILLERS and not (engine.waiting or engine.prefilling):
+                break
+        else:
+            raise AssertionError(f"a1 batch: {engine.num_running} fillers running")
+    out = {r.request_id: [] for r in reqs}
+
+    def step():
+        for o in engine.step():
+            if o.request_id in out:
+                out[o.request_id].append(o.token)
+
+    for r in reqs:
+        engine.add_request(r)
+        step()
+    if case == "batch" and engine.num_running != 8:
+        raise AssertionError(f"a1 batch: {engine.num_running} rows running, expected 8")
+    if case == "chunk":
+        engine.add_request(Request("a1-long", [3 + (11 * j) % 250 for j in range(A1_LONG)],
+                                   SamplingParams(temperature=0.0, max_tokens=4)))
+        others.append("a1-long")
+    beside = 0
+    for _ in range(400):
+        if all(len(v) >= A1_TOKENS for v in out.values()):
+            break
+        beside += bool(engine.prefilling)
+        step()
+    if any(len(v) != A1_TOKENS for v in out.values()):
+        raise AssertionError(f"a1 {case}: stream lengths {[len(v) for v in out.values()]}")
+    for rid in others:
+        engine.cancel(rid)
+    while engine.has_work():
+        engine.step()
+    return out, beside
+
+
+def profile_stepping(engine, n_tokens: int = 32, fixed_m: bool = False) -> dict:
+    """Eight greedy requests (prompts of 100…1500 tokens) decoding
+    together, once the batch runs and its graphs exist: wall ms and the
+    stepping thread's CPU ms per token of each stream (one batch step
+    per token) over ``n_tokens`` tokens a stream, then over as many more
+    under ``torch.profiler`` (device activity only) the device ms per
+    token (the kernels' time, graph replays' kernels included) and the
+    busy share, device ms / wall ms; with ``fixed_m``, then
+    :func:`fixed_m_cost` from the same batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fusioninfer_tpu_torch.engine.engine import Request
+    from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+
+    lens = [100, 300, 500, 700, 900, 1100, 1300, 1500]
+    rids = [f"burst-prof{i}" for i in range(len(lens))]
+    for i, (rid, n) in enumerate(zip(rids, lens)):
+        engine.add_request(Request(rid, [3 + (7 * j + i) % 250 for j in range(n)],
+                                   SamplingParams(temperature=0.0,
+                                                  max_tokens=2 * n_tokens + 4 * BURST + 8)))
+    got = dict.fromkeys(rids, 0)
+    for _ in range(200):
+        if min(got.values()) > BURST + 1 and not (engine.waiting or engine.prefilling):
+            break
+        for o in engine.step():
+            got[o.request_id] += 1
+    torch.cuda.synchronize()
+
+    def window():
+        emitted = 0
+        while emitted < n_tokens * len(lens):
+            emitted += len(engine.step())
+        torch.cuda.synchronize()
+        return emitted / len(lens)
+
+    t0, c0 = time.perf_counter(), time.thread_time()
+    per_stream = window()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / per_stream
+    cpu_ms = (time.thread_time() - c0) * 1e3 / per_stream
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        per_stream2 = window()
+    if engine.num_running != len(lens):
+        raise AssertionError(f"burst profile: {engine.num_running} rows running")
+    fixed_m = fixed_m_cost(engine) if fixed_m else None
+    for rid in rids:
+        engine.cancel(rid)
+    while engine.has_work():
+        engine.step()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / per_stream2
+    walks = [e for e in kernels if any(k in e.key for k in WALK_KERNELS)]
+    if not walks:
+        raise AssertionError("the profile saw no page-walk kernel")
+    return {"rows": len(lens), "wall_ms_per_token": wall_ms, "cpu_ms_per_token": cpu_ms,
+            "device_ms_per_token": device_ms,
+            "device_busy_share": device_ms / wall_ms if device_ms else None,
+            "walk_launches_per_token": {e.key[:60]: e.count / per_stream2 for e in walks},
+            "fixed_m": fixed_m}
+
+
+def fixed_m_cost(engine) -> dict:
+    """The device ms of one decode-only forward (:func:`time_graph`: two
+    forwards a graph, the median of five replays) from the running
+    batch's state: 8 live rows at M 8, and 2 live rows at M 2 (the row
+    count before this slice) and at M 8 (the engine's fixed ``B·W``)."""
+    import numpy as np
+
+    from fusioninfer_tpu_torch.engine.fused import pack_ragged_batch
+    from fusioninfer_tpu_torch.engine.model_runner import fused_step
+
+    live = engine._live()
+    B = engine.max_batch_size
+
+    def forward_ms(slots, n_tokens):
+        window, counts, positions, tables = engine._decode_window(
+            {s: live[s] for s in slots}, {})
+        packed = pack_ragged_batch(window, counts, positions, tables, np.zeros_like(counts),
+                                   [], engine.cache_cfg.trash_page,
+                                   rows=engine._ragged_rows, chunk_rows=0, min_tokens=B)
+        arrays = engine._upload_int32((packed.tokens, packed.row_starts, packed.q_begins,
+                                       packed.q_lens, packed.page_tables, packed.sel,
+                                       packed.chunk_sel))
+        return time_graph(lambda: fused_step(
+            engine.cfg, engine.cache_cfg, engine.params, engine.cache, *arrays,
+            kv_splits=engine.kv_splits, cluster=engine.walk_cluster, n_tokens=n_tokens,
+            n_walk=packed.packed_tokens), reps=5, per_graph=2)
+
+    slots = sorted(live)
+    return {"live8_m8": forward_ms(slots, B), "live2_m2": forward_ms(slots[:2], 2),
+            "live2_m8": forward_ms(slots[:2], B)}
+
+
+def check_graph_eager(engine) -> dict:
+    """One burst of ``BURST`` steps over eight rows of mixed sampling
+    params (greedy, top-k, top-p, min-p, penalties, min_tokens: mode
+    "filtered"), from the same pool and count tables: the graph's replay
+    must give eager ``decode_burst``'s tokens and counts bit for bit.  The
+    eager run's K/V writes are at the positions the replay writes again
+    before it reads them; the count tables are restored between the two."""
+    import numpy as np
+    import torch
+
+    from fusioninfer_tpu_torch.engine.engine import Request
+    from fusioninfer_tpu_torch.engine.model_runner import decode_burst
+    from fusioninfer_tpu_torch.engine.sampler import SamplingParams, sample_mode
+
+    kinds = [dict(temperature=0.0), dict(temperature=0.8, top_k=40, seed=1),
+             dict(temperature=0.9, top_p=0.9, seed=2), dict(temperature=0.8, min_p=0.05, seed=3),
+             dict(temperature=0.0, repetition_penalty=1.3, presence_penalty=0.5),
+             dict(temperature=1.0, seed=4, frequency_penalty=0.3),
+             dict(temperature=0.0, min_tokens=20, stop_token_ids=(10, 35)),
+             dict(temperature=0.7, top_k=100, seed=5)]
+    pipelined, engine.pipeline_bursts = engine.pipeline_bursts, False
+    rids = [f"graph-eager{i}" for i in range(len(kinds))]
+    for i, (rid, kw) in enumerate(zip(rids, kinds)):
+        engine.add_request(Request(rid, [3 + (13 * j + i) % 250 for j in range(64 + 60 * i)],
+                                   SamplingParams(max_tokens=64, **kw)))
+    for _ in range(50):
+        if engine.num_running == len(kinds) and not (engine.waiting or engine.prefilling):
+            break
+        engine.step()
+    rows = dict(engine.running)
+    if len(rows) != len(kinds) or engine._inflight is not None:
+        raise AssertionError("graph-eager check: batch not settled")
+    _, span = engine._ensure_decode_capacity(BURST)
+    ctl_i, ctl_f, tables = engine._decode_controls(rows)
+    mode = sample_mode(st.request.params for st in rows.values())
+    tc, oc, sup = engine._token_counts, engine._output_counts, engine._suppress
+    saved = tc.clone(), oc.clone()
+    dev = engine.device
+    eager, _ = decode_burst(engine.cfg, engine.cache_cfg, engine.params, engine.cache,
+                            torch.as_tensor(ctl_i, device=dev), torch.as_tensor(ctl_f, device=dev),
+                            tc, oc, sup, torch.as_tensor(tables, device=dev), n_steps=BURST,
+                            sample_mode=mode, kv_splits=engine.kv_splits,
+                            cluster=engine.walk_cluster)
+    eager = eager.cpu().numpy()
+    counts_eager = tc.clone(), oc.clone()
+    tc.copy_(saved[0])
+    oc.copy_(saved[1])
+    graph = engine.bursts.launch(ctl_i, ctl_f, tables, BURST, mode).tokens()
+    same_counts = torch.equal(tc, counts_eager[0]) and torch.equal(oc, counts_eager[1])
+    tc.copy_(saved[0])
+    oc.copy_(saved[1])
+    for rid in rids:
+        engine.cancel(rid)
+    while engine.has_work():
+        engine.step()
+    engine.pipeline_bursts = pipelined
+    if span != BURST or not np.array_equal(eager, graph) or not same_counts:
+        raise AssertionError(f"graph replay differs from eager decode_burst (span {span}, "
+                             f"mode {mode}): tokens equal {np.array_equal(eager, graph)}, "
+                             f"counts equal {same_counts}")
+    return {"mode": mode, "span": span, "rows": len(rows), "tokens": int(eager.size)}
+
+
+def serve_burst_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
+    """Phase 9, one page configuration: the batch-independence check
+    (:func:`serve_a1_case`, every case) on a ``--decode-burst 8``
+    pipelined engine, a per-token engine without the fused step and a
+    per-token engine with it; the first two must give the same tokens in
+    every case, and the same as each other (burst = per-token, on the
+    card); the fused engine's first difference beside the chunk is
+    printed.  Then the steady-state profiles of the burst engine
+    pipelined and of the per-token engine; with ``extras`` also the
+    graph-against-eager check, the burst engine's unpipelined profile
+    and the fixed-M cost.  ``make_engine(kind)`` builds the leg's
+    engines."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    out: dict = {"streams": {}, "launches": {}, "beside_chunk_steps": {}}
+    for kind in ("burst", "split", "fused"):
+        t0 = time.perf_counter()
+        engine = make_engine(kind)
+        dispatch.reset_launches()
+        cases = {case: serve_a1_case(engine, case) for case in A1_CASES}
+        out["launches"][kind] = dispatch.launches()
+        out["streams"][kind] = {case: res[0] for case, res in cases.items()}
+        out["beside_chunk_steps"][kind] = cases["chunk"][1]
+        if cases["chunk"][1] < 2:
+            raise AssertionError(f"{tag} {kind}: the chunked prompt ran beside "
+                                 f"{cases['chunk'][1]} decode steps")
+        walk = sum(v for k, v in out["launches"][kind].items()
+                   if k.startswith("ragged_paged_attention"))
+        log(f"  {tag}, {kind}: three cases in {time.perf_counter() - t0:.2f} s; walk launches "
+            f"{walk}, flash {out['launches'][kind]['flash_attention']}; sched "
+            f"{ {k: engine.sched.snapshot()[k] for k in ('burst_span_steps', 'dispatch_ahead', 'burst_clamped', 'fused_steps')} }")
+        if walk == 0:
+            raise AssertionError(f"{tag} {kind}: no page walk launched")
+        if kind == "burst":
+            if ((engine.bursts.graphed and not engine.bursts.captures)
+                    or engine.sched.burst_span_steps[BURST] == 0):
+                raise AssertionError(f"{tag}: no burst graph ran")
+            if extras:
+                out["graph_eager"] = check_graph_eager(engine)
+            out["profile_pipelined"] = profile_stepping(engine)
+            if extras:
+                engine.pipeline_bursts = False
+                out["profile_unpipelined"] = profile_stepping(engine)
+            out["captures"] = [dict(vars(c)) for c in engine.bursts.captures]
+        elif kind == "split":
+            out["profile_per_token"] = profile_stepping(engine, n_tokens=16, fixed_m=extras)
+        del engine
+        torch.cuda.empty_cache()
+        log(f"  {tag}, {kind}: engine done in {time.perf_counter() - t0:.1f} s")
+    streams = out["streams"]
+    for kind in ("burst", "split"):
+        for case in A1_CASES[1:]:
+            if streams[kind][case] != streams[kind]["alone"]:
+                diff = {rid: first_difference(streams[kind]["alone"][rid], toks)
+                        for rid, toks in streams[kind][case].items()}
+                raise AssertionError(f"{tag} {kind}: case {case} parts from alone at {diff}")
+    if streams["burst"]["alone"] != streams["split"]["alone"]:
+        diff = {rid: first_difference(streams["split"]["alone"][rid], toks)
+                for rid, toks in streams["burst"]["alone"].items()}
+        raise AssertionError(f"{tag}: burst streams part from per-token streams at {diff}")
+    out["fused_first_difference"] = {
+        case: {rid: first_difference(streams["fused"]["alone"][rid], toks)
+               for rid, toks in streams["fused"][case].items()} for case in A1_CASES[1:]}
+    out["fused_vs_split"] = {rid: first_difference(streams["split"]["alone"][rid], toks)
+                             for rid, toks in streams["fused"]["alone"].items()}
+    log(f"  {tag}: greedy and seeded streams the same alone, in a batch of 8 and beside "
+        f"a {A1_LONG}-token chunked prompt, on the burst and the per-token (no fused step) "
+        f"engines, and the same on both; fused-step engine, first difference from its "
+        f"own alone stream {out['fused_first_difference']}, alone against per-token "
+        f"{out['fused_vs_split']}")
+    if extras:
+        ge = out["graph_eager"]
+        log(f"  {tag}: graph replay = eager decode_burst bit for bit ({ge['rows']} rows, "
+            f"span {ge['span']}, mode {ge['mode']})")
+    log(f"  {tag}: captures " + ", ".join(
+        f"span {c['span']} {c['mode']} {c['seconds']:.2f} s +{c['pool_bytes']} B"
+        for c in out["captures"]))
+    for name in ("profile_pipelined", "profile_unpipelined", "profile_per_token"):
+        if name not in out:
+            continue
+        p = out[name]
+        log(f"  {tag}, {name[8:]}: per token of each of 8 streams {p['wall_ms_per_token']:.3f} "
+            f"ms wall, {p['cpu_ms_per_token']:.3f} ms thread CPU, "
+            f"{p['device_ms_per_token']:.3f} ms device, busy "
+            f"{p['device_busy_share'] if p['device_busy_share'] is None else round(p['device_busy_share'], 4)} "
+            f"on {card}")
+    fm = out["profile_per_token"]["fixed_m"]
+    if fm:
+        log(f"  {tag}: decode-only forward, device ms: 8 live at M 8 {fm['live8_m8']:.3f}; "
+            f"2 live at M 2 {fm['live2_m2']:.3f}, at M 8 {fm['live2_m8']:.3f}")
+    return out
+
+
+def serve_burst_defaults(params, card: str) -> dict:
+    """``engine serve qwen3-8b`` with the CLI defaults (``--decode-burst
+    8`` pipelined, prefix caching, a calibrated token budget,
+    ``--max-model-len 4096``) on the phase's weights: one cold request
+    first (its TTFT, and the gap to its second token, which waits for the
+    graphs' captures), then the phase-4 prompts at once; every greedy
+    token must pass :func:`check_greedy`."""
+    import torch
+
+    from fusioninfer_tpu_torch import cli
+    from fusioninfer_tpu_torch.engine.server import EngineServer, engine_from_args
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    args = cli.build_parser().parse_args(["engine", "serve", "qwen3-8b"])
+    engine = engine_from_args(args, params=params)
+    if engine.burst_steps != BURST or not engine.pipeline_bursts or not engine.prefix_caching:
+        raise AssertionError("the CLI defaults did not build a pipelined burst engine")
+    server = EngineServer(engine, host="127.0.0.1", port=0)
+    server.start()
+    prompts = [("The quick brown fox jumps over the lazy dog. " * 40)[:n]
+               for n in N_REQUESTS_PROMPTS]
+    results, errors = [None] * len(prompts), []
+    try:
+        dispatch.reset_launches()
+        cold = {**_post(server.port, {"prompt": "A cold start: " + prompts[1],
+                                      "max_tokens": MAX_TOKENS, "temperature": 0.0,
+                                      "stream": True}, stream=True),
+                "prompt": "A cold start: " + prompts[1]}
+        capture_s = sum(c.seconds for c in engine.bursts.captures)
+
+        def one(i, text):
+            try:
+                results[i] = {**_post(server.port, {"prompt": text, "max_tokens": MAX_TOKENS,
+                                                    "temperature": 0.0, "stream": True},
+                                      stream=True), "prompt": text}
+            except Exception as e:  # noqa: BLE001 - collected and re-raised below
+                errors.append(f"request {i}: {e!r}")
+
+        threads = [threading.Thread(target=one, args=(i, p)) for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a request did not finish within 600 s")
+    finally:
+        server.stop()
+    if errors:
+        raise AssertionError("; ".join(errors))
+    for r in [cold, *results]:
+        if r["tokens"] != MAX_TOKENS or r["finish"] != "length":
+            raise AssertionError(f"defaults leg: {r['tokens']} tokens, finish {r['finish']!r}")
+    launches = dispatch.launches()
+    gap = check_greedy(engine, [cold, *results], paged_prompt=True)
+    snap = engine.sched.snapshot()
+    out = {"token_budget": engine.token_budget, "launches": launches, "greedy_gap": gap,
+           "cold_ttft_s": cold["ttft_s"], "cold_second_token_s": cold["second_token_s"],
+           "capture_s": capture_s,
+           "captures": [dict(vars(c)) for c in engine.bursts.captures],
+           "ttft_s": [r["ttft_s"] for r in results],
+           "decode_tok_s": [r["decode_tok_s"] for r in results],
+           "dispatch_ahead": snap["dispatch_ahead"], "burst_clamped": snap["burst_clamped"],
+           "burst_span_steps": snap["burst_span_steps"]}
+    if launches["ragged_paged_attention_kvsplit"] == 0 or snap["burst_span_steps"][str(BURST)] == 0:
+        raise AssertionError(f"defaults leg: no burst walk launched: {launches}, {snap}")
+    log(f"  CLI defaults (budget {engine.token_budget}): cold request TTFT "
+        f"{cold['ttft_s']:.4f} s, its second token {cold['second_token_s']:.4f} s later "
+        f"(captures {capture_s:.2f} s: "
+        + ", ".join(f"span {c.span} {c.mode} {c.seconds:.2f} s +{c.pool_bytes} B"
+                    for c in engine.bursts.captures)
+        + f"); then {len(prompts)} SSE requests: TTFT {[round(t, 4) for t in out['ttft_s']]} s, "
+        f"decode {[round(x, 1) for x in out['decode_tok_s']]} tok/s per stream; "
+        f"dispatch_ahead {snap['dispatch_ahead']}, burst_span_steps "
+        f"{snap['burst_span_steps']}, burst_clamped {snap['burst_clamped']}; greedy gap "
+        f"{gap:.4f} on {card}")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_row(name: str, source: str, replaces: int, launches: int, res: dict) -> dict:
     return {"name": name, "route": "cuda", "source": f"fusioninfer_tpu_torch/csrc/{source}",
             "replaces": f"fusioninfer_tpu/ops/{replaces}", "launches": launches,
@@ -1908,16 +2340,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/9] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    log(f"[1/10] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     _build.build_all()
-    log(f"[2/9] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
+    log(f"[2/10] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log(f"[3/9] kernels against their plain versions (bf16 and int8 pages, |err| <= "
+    log(f"[3/10] kernels against their plain versions (bf16 and int8 pages, |err| <= "
         f"{RTOL}·|ref| + row_tol·rms(row), row_tol {FLASH_ROW_TOL} flash / {PAGED_ROW_TOL} "
         f"page walks and decode / {WINDOW_ROW_TOL} prefill and verify; times: median "
         f"CUDA-event ms on {card})")
@@ -1988,7 +2420,7 @@ def main() -> int:
     del cases
     torch.cuda.empty_cache()
 
-    log("[4/9] serve qwen3-8b at full width, max-model-len 4096")
+    log("[4/10] serve qwen3-8b at full width, max-model-len 4096")
     cfg = get_preset("qwen3-8b")
     t0 = time.perf_counter()
     # phases 4-6 serve as the earlier slices did: no prefix cache, no token
@@ -2010,7 +2442,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[5/9] single page walk: same weights, max-model-len 2048")
+    log("[5/10] single page walk: same weights, max-model-len 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda",
                                                  prefix_caching=False),
                           max_batch_size=8, params=params, device="cuda", **legacy)
@@ -2024,7 +2456,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[6/9] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
+    log("[6/10] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
         "then 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda", "int8",
                                                  prefix_caching=False),
@@ -2045,7 +2477,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[7/9] prefix caching, chunked prefill and fused steps (the serve defaults, "
+    log(f"[7/10] prefix caching, chunked prefill and fused steps (the serve defaults, "
         f"--tokens-per-step {TOKENS_PER_STEP}): same weights, bf16 pages at 4096 (split "
         "walk) and 2048 (single walk), int8 pages at 2048")
     serve7 = {}
@@ -2063,7 +2495,7 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
-    log(f"[8/9] speculative decoding (--speculative-ngram {SPEC_K}), extractive prompts, "
+    log(f"[8/10] speculative decoding (--speculative-ngram {SPEC_K}), extractive prompts, "
         f"greedy then seeded sampled, against the same engine without speculation: same "
         f"weights, bf16 pages at 4096 (split walk) and 2048 (single walk), int8 pages at "
         f"2048")
@@ -2082,10 +2514,38 @@ def main() -> int:
 
         serve8[tag] = serve_spec_leg(make_engine, tag, card, extras=tag == "bf16_4096")
 
+    log(f"[9/10] decode bursts (--decode-burst {BURST}, pipelined, CUDA graphs): a greedy "
+        f"and a seeded request alone, in a full batch and beside a {A1_LONG}-token chunked "
+        f"prompt on burst, per-token and fused-step engines (no prefix cache, "
+        f"--tokens-per-step {TOKENS_PER_STEP}); graph against eager; steady-state "
+        f"profiles; then the CLI defaults through the server: same weights, bf16 pages at "
+        f"4096 (split walk) and 2048 (single walk), int8 pages at 2048")
+    serve9 = {}
+    for max_len, kv_dtype in ((4096, "model"), (2048, "model"), (2048, "int8")):
+        tag = f"{'int8' if kv_dtype == 'int8' else 'bf16'}_{max_len}"
+
+        def make_burst_engine(kind, max_len=max_len, kv_dtype=kv_dtype, tag=tag):
+            engine = NativeEngine(cfg, auto_cache_config(cfg, 128, max_len, 8, "cuda",
+                                                         kv_dtype, prefix_caching=False),
+                                  max_batch_size=8, params=params, device="cuda",
+                                  enable_prefix_caching=False, token_budget=TOKENS_PER_STEP,
+                                  fused_step=kind == "fused",
+                                  decode_burst_steps=BURST if kind == "burst" else 1)
+            if engine.walk_cluster not in (None, fixed_cl):
+                raise AssertionError(f"{tag}: cluster {engine.walk_cluster}")
+            return engine
+
+        serve9[tag] = serve_burst_leg(make_burst_engine, tag, card,
+                                      extras=tag == "bf16_4096")
+    serve9["cli_defaults"] = serve_burst_defaults(params, card)
+
     pa_py = "paged_attention.py"
     legs = [serve4, serve5, serve6, serve6s, *serve7.values(),
             *(leg[side][part] for leg in serve8.values() for side in ("on", "off")
-              for part in ("greedy", "sampled") if part in leg[side])]
+              for part in ("greedy", "sampled") if part in leg[side]),
+            *({"launches": v} for leg in serve9.values() if "streams" in leg
+              for v in leg["launches"].values()),
+            serve9["cli_defaults"]]
 
     def served(name):  # launches over every serve leg
         return sum(leg["launches"][name] for leg in legs)
@@ -2134,9 +2594,9 @@ def main() -> int:
                    "spec_shape": {f"{'split' if sp else 'single'}{'_int8' if q8 else ''}": r
                                   for (sp, q8), r in spec_shape.items()},
                    "spec_bits_rows": spec_bits, "spec_cluster": spec_cl,
-                   "spec_legs": serve8,
+                   "spec_legs": serve8, "burst_legs": serve9,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[9/9] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[10/10] done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@
         [--device cuda] [--max-model-len 4096] [--kv-cache-dtype int8] \\
         [--no-prefix-caching] [--prefill-chunk-size N] \\
         [--tokens-per-step N | --no-token-budget] [--no-fused-step] \\
-        [--speculative-ngram K] [--port 8000] [--seed 0]
+        [--speculative-ngram K] [--decode-burst 8] [--no-decode-pipeline] \\
+        [--port 8000] [--seed 0]
 
 ``engine serve`` runs on the card unless ``--device cpu`` is given; with
 no CUDA device it raises instead of falling back to the CPU.
@@ -61,7 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "prefill-chunk rows in ONE forward, so the "
                             "weights stream from memory once per step "
                             "(--no-fused-step: a chunk forward, then a "
-                            "decode forward)")
+                            "decode forward).  Burst engines "
+                            "(--decode-burst > 1) keep the split path "
+                            "either way")
     serve.add_argument("--speculative-ngram", type=int, default=0, metavar="K",
                        help="n-gram prompt-lookup speculative decoding: "
                             "propose up to K draft tokens per sequence from "
@@ -70,6 +73,18 @@ def build_parser() -> argparse.ArgumentParser:
                             "are token-identical on the CPU, and on CUDA "
                             "can part at a near-tie, as the GEMM's M "
                             "changes with the drafts")
+    serve.add_argument("--decode-burst", type=int, default=8, metavar="N",
+                       help="decode bursts: up to N decode + sample steps "
+                            "in one dispatch (a CUDA graph on the card), "
+                            "each sampled token fed back on the device, "
+                            "one host round trip per N tokens (0 or 1 = "
+                            "per-token stepping); a request that needs "
+                            "host work each token (logprobs, logit_bias) "
+                            "steps once per pass while the rest of the "
+                            "batch bursts")
+    serve.add_argument("--no-decode-pipeline", action="store_true",
+                       help="do not dispatch the next burst before "
+                            "reading the current one's tokens")
     serve.add_argument("--seed", type=int, default=0,
                        help="seed of the random weights")
     serve.add_argument("--host", default="0.0.0.0")

@@ -42,10 +42,25 @@ sequence one token per :meth:`NativeEngine.step`.  As in the JAX engine:
 * **logprobs and logit_bias**: logprobs come from the raw
   (unpenalized) logits; a request's bias is added after the penalties
   and the min-tokens suppression, at admission and every decode step.
+* **Decode bursts** (``decode_burst_steps`` > 1): the running rows take
+  up to that many decode + sample steps in one dispatch
+  (:func:`model_runner.decode_burst`, replayed as a CUDA graph on the
+  card by :class:`engine.graphs.BurstRunner`), each sampled token fed
+  back on the device.  The span is 1 or ``decode_burst_steps`` and
+  clamps to 1 while admission work is pending; rows that need host work
+  each token (logprobs, ``logit_bias``) step one token in the same pass.
+  With ``pipeline_bursts`` the successor burst is dispatched from the
+  device-side control carry before the current one's tokens are read.
+* **Fixed GEMM rows**: a decode-only forward runs its embed, layer
+  GEMMs, norms and lm_head over ``max_batch_size · (1 + k)`` rows
+  whatever the number of live slots, so a stream's decode tokens do not
+  depend on its batch (:func:`model_runner.fused_step`).
 
-Left out, and absent rather than switched off: decode bursts, LoRA,
-guided decoding, SLO tiers and priorities (the wait queue orders by
-arrival), deadlines, the host KV tier and the PD/KV fabric.
+Left out, and absent rather than switched off: LoRA, guided decoding,
+SLO tiers and priorities (the wait queue orders by arrival), deadlines,
+the host KV tier and the PD/KV fabric.  Decode bursts on a
+sliding-window model wait for its page trimming and raise at
+construction.
 
 Concurrency: one engine-loop thread owns all scheduling state and is the
 only caller of :meth:`step`; other threads enter only through the locked
@@ -66,6 +81,7 @@ import numpy as np
 import torch
 
 from fusioninfer_tpu_torch.engine.fused import pack_ragged_batch, pow2_rows
+from fusioninfer_tpu_torch.engine.graphs import BurstRunner
 from fusioninfer_tpu_torch.engine.kv_cache import (
     CacheConfig,
     PageAllocator,
@@ -82,6 +98,7 @@ from fusioninfer_tpu_torch.engine.sampler import (
     SamplingParams,
     apply_penalties,
     sample,
+    sample_mode,
     spec_window_draws,
     topk_ordered,
 )
@@ -208,7 +225,9 @@ class NativeEngine:
                  prefill_chunk_size: Optional[int] = None,
                  token_budget: Optional[int] = None,
                  fused_step: bool = True,
-                 speculative_k: Optional[int] = None):
+                 speculative_k: Optional[int] = None,
+                 decode_burst_steps: int = 1,
+                 pipeline_bursts: bool = True):
         """``device``: where weights, pool and every forward live; None
         means ``cuda`` (raises without CUDA).  ``params``: the port's
         parameter dict (e.g. from :func:`convert.params_from_jax`), moved
@@ -225,12 +244,27 @@ class NativeEngine:
         tokens one :meth:`step` may process, decode charged first;
         None with no chunk size means monolithic prefill.
         ``fused_step``: a step with both decode rows and prefill chunks
-        runs them in one forward; output streams are the same either
-        way.  ``speculative_k``: n-gram speculative decoding with up to
-        this many drafts a row and step (None = off); greedy streams are
-        token-identical with it on or off on the CPU, and on CUDA can
-        part at a near-tie (the lm_head GEMM's M changes with the drafts,
-        and cuBLAS may pick another kernel)."""
+        runs them in one forward; output streams are the same either way
+        on the CPU.  On the card a decode row beside a chunk can part
+        there at a near-tie, because the mixed forward's layer GEMMs run
+        at its live packed tokens, and cuBLAS may pick another kernel at
+        another M.  Decode-only forwards run their GEMMs at
+        ``max_batch_size · (1 + speculative_k)`` rows whatever the live
+        slots, so on the card as on the CPU a stream's decode tokens do
+        not depend on its batch (per-token engines with ``fused_step``
+        off and burst engines).  ``speculative_k``: n-gram speculative
+        decoding with up to this many drafts a row and step (None = off);
+        greedy streams are token-identical with it on or off on the CPU,
+        and on the card can part at a near-tie (the two engines' GEMMs
+        run at different row counts).
+
+        ``decode_burst_steps``: up to this many decode + sample steps a
+        dispatch for the rows that need no host work each token (1 =
+        per-token stepping); burst engines keep the split path whatever
+        ``fused_step`` says, and speculation forces span 1.
+        ``pipeline_bursts``: dispatch the successor burst before reading
+        the current one's tokens while the running set holds still.
+        Streams are the same with bursts on or off, pipelined or not."""
         self.cfg = cfg.validate()
         self.cache_cfg = (cache_cfg or CacheConfig()).validate()
         self.device = resolve_device(device)
@@ -298,6 +332,22 @@ class NativeEngine:
             raise ValueError("speculative_k must be >= 1")
         self.spec_k = speculative_k
         self.proposer = NgramProposer() if speculative_k else None
+        if decode_burst_steps < 1:
+            raise ValueError("decode_burst_steps must be >= 1")
+        if decode_burst_steps > 1 and cfg.sliding_window is not None:
+            raise ValueError("decode bursts on a sliding-window model need "
+                             "its page trimming, which is not ported yet")
+        self.burst_steps = decode_burst_steps
+        self.pipeline_bursts = pipeline_bursts
+        # the dispatched burst whose tokens are not read yet: (handle,
+        # {slot: state} it decodes, span, mode)
+        self._inflight = None
+        self.bursts = BurstRunner(self) if decode_burst_steps > 1 else None
+        # the only two spans a dispatch can record, seeded as the JAX
+        # ledger seeds them
+        self.sched.burst_span_steps[1] = 0
+        if decode_burst_steps > 1:
+            self.sched.burst_span_steps[decode_burst_steps] = 0
         # slot -> (ids, vals) device tensors of a request's logit_bias,
         # built once at activation
         self._slot_bias: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
@@ -659,7 +709,8 @@ class NativeEngine:
 
     def _request_seed(self, request: Request) -> int:
         if request.params.seed is not None:
-            return int(request.params.seed)
+            # the draw takes a seed's uint32 bits, as the JAX engine does
+            return int(request.params.seed) & 0xFFFF_FFFF
         # unseeded: stable per engine seed + admission order
         return (self._base_seed * 1_000_003 + next(self._seed_counter)) & 0x7FFFFFFF
 
@@ -690,17 +741,21 @@ class NativeEngine:
             [(request, prefix, resumed, logits[i: i + 1])
              for i, (request, prefix, resumed) in enumerate(items)])
 
-    def _ragged_forward(self, packed):
+    def _ragged_forward(self, packed, gemm_rows: int = 0):
         """Dispatch ONE flat ragged forward and charge its weight pass →
         ``(logits [B, W, V], chunk_logits [NC, V])``.  Every engine forward
         that reads paged context (decode rows and their spec windows, chunk
-        advances, cache-hit suffixes, mixed steps) lands here."""
+        advances, cache-hit suffixes, mixed steps) lands here.
+        ``gemm_rows``: the fixed row count of a decode-only forward's
+        GEMMs (``B·W``); 0 runs them over the packed tokens.  The walk
+        launches over the packed tokens either way."""
         arrays = (packed.tokens, packed.row_starts, packed.q_begins,
                   packed.q_lens, packed.page_tables, packed.sel, packed.chunk_sel)
         logits, chunk_logits = fused_step(
             self.cfg, self.cache_cfg, self.params, self.cache,
             *self._upload_int32(arrays), kv_splits=self.kv_splits,
-            cluster=self.walk_cluster, n_tokens=packed.packed_tokens)
+            cluster=self.walk_cluster, n_tokens=gemm_rows or packed.packed_tokens,
+            n_walk=packed.packed_tokens)
         self.sched.charge_weight_pass()
         return logits, chunk_logits
 
@@ -810,8 +865,11 @@ class NativeEngine:
         return self._activate_group(done) if done else []
 
     def _use_fused_step(self) -> bool:
-        """One forward for this step's decode AND chunk work?"""
-        return (self.fused_step_enabled and bool(self.prefilling)
+        """One forward for this step's decode AND chunk work?  Never on a
+        burst engine: its span-1 burst carries the dispatch-ahead control
+        chain that a mixed forward cannot (the JAX engine's rule)."""
+        return (self.fused_step_enabled and self.burst_steps == 1
+                and self._inflight is None and bool(self.prefilling)
                 and any(st.n_generated < st.request.params.max_tokens
                         for st in self.running.values()))
 
@@ -822,7 +880,7 @@ class NativeEngine:
         activations are emitted first, then the decode tokens, as on the
         split path.  A failed forward fails the chunk rows and decodes
         split this step."""
-        failures = self._ensure_decode_capacity()
+        failures, _ = self._ensure_decode_capacity()
         live = self._live()
         if not live or not self.prefilling:
             # preemption took one row kind away since step()'s gate
@@ -945,7 +1003,8 @@ class NativeEngine:
                     logits[i].index_add_(0, b[0], b[1])
         toks = sample(logits, [p.temperature for p in params],
                       [p.top_k for p in params], [p.top_p for p in params],
-                      [p.min_p for p in params], seeds, gen_counts)
+                      [p.min_p for p in params], seeds, gen_counts,
+                      mode=sample_mode(params))
         return ([int(t) for t in toks.tolist()],
                 self._logprobs(raw, [p.logprobs for p in params], toks))
 
@@ -1000,19 +1059,188 @@ class NativeEngine:
         return window, counts, positions, tables
 
     def _decode(self) -> list[StepOutput]:
-        """Decode the running batch: the same ragged forward as the fused
-        step with zero chunk rows."""
-        failures = self._ensure_decode_capacity()
+        """Decode the running batch.  An in-flight burst is consumed
+        first (and nothing else decodes this pass).  On a burst engine
+        the rows that need no host work each token ride one burst of the
+        pass's span; the others, and every row of a per-token engine,
+        take the same ragged forward as the fused step with zero chunk
+        rows, its GEMMs at the fixed ``B·W`` rows."""
+        if self._inflight is not None:
+            return self._consume_inflight()
+        failures, span = self._ensure_decode_capacity(self._burst_span())
         live = self._live()
         if not live:
             return failures
+        burst_rows = ({s: st for s, st in live.items() if self._row_bursts(st)}
+                      if self.burst_steps > 1 and not self.spec_k else {})
+        if burst_rows:
+            ctl_i, ctl_f, tables = self._decode_controls(burst_rows)
+            mode = sample_mode(st.request.params for st in burst_rows.values())
+            handle = self._dispatch_burst(ctl_i, ctl_f, tables, span, mode)
+            self._inflight = (handle, dict(burst_rows), span, mode)
+            failures = failures + self._consume_inflight()
+            # rows needing host work each token step once in this pass
+            live = {s: st for s, st in live.items() if s not in burst_rows}
+            if not live:
+                return failures
         spec_drafts = self._propose_drafts(live) if self.spec_k else {}
         window, counts, positions, tables = self._decode_window(live, spec_drafts)
+        rows = self.max_batch_size * window.shape[1]
         packed = pack_ragged_batch(
             window, counts, positions, tables, np.zeros_like(counts), [],
-            self.cache_cfg.trash_page, rows=self._ragged_rows, chunk_rows=0)
-        logits_w, _ = self._ragged_forward(packed)
+            self.cache_cfg.trash_page, rows=self._ragged_rows, chunk_rows=0,
+            min_tokens=rows)
+        logits_w, _ = self._ragged_forward(packed, gemm_rows=rows)
         return failures + self._decode_finish(live, logits_w, spec_drafts)
+
+    # -- decode bursts -------------------------------------------------------
+
+    @staticmethod
+    def _row_bursts(st: _SeqState) -> bool:
+        """Can this row ride a burst?  logprobs and ``logit_bias`` need
+        host work each token: such a row steps once per pass while the
+        rest of the batch bursts."""
+        p = st.request.params
+        return p.logprobs is None and not p.logit_bias
+
+    def _decode_need(self, st: _SeqState, span: int) -> int:
+        """Tokens of page coverage this row needs from the next decode
+        pass: a burst row the whole span (clipped to its budget), any
+        other row one token."""
+        if span <= 1 or not self._row_bursts(st):
+            return 1
+        return max(1, min(span, st.request.params.max_tokens - st.n_generated))
+
+    def _admission_pending(self) -> bool:
+        """Any scheduler work besides decoding the running batch?"""
+        return bool(self.waiting or self.prefilling or self._cancelled)
+
+    def _burst_span(self) -> int:
+        """The next pass's span: 1 or ``decode_burst_steps``, never in
+        between (two graphs per mode).  1 with speculation, with no row
+        that can burst, when no such row has a full span of budget left,
+        and while admission work is pending (counted in
+        ``burst_clamped``), so a burst never adds queue wait."""
+        k = self.burst_steps
+        if k <= 1 or self.spec_k:
+            return 1
+        eligible = [st for st in self.running.values()
+                    if st.n_generated < st.request.params.max_tokens
+                    and self._row_bursts(st)]
+        if not eligible:
+            return 1
+        if max(st.request.params.max_tokens - st.n_generated for st in eligible) < k:
+            return 1
+        if self._admission_pending():
+            self.sched.burst_clamped_total += 1
+            return 1
+        return k
+
+    def _decode_controls(self, rows: dict):
+        """Per-slot control arrays of a burst over ``rows`` (dead slots:
+        inactive, neutral params, trash pages) → ``(ctl_i [B, 8] int32,
+        ctl_f [B, 6] f32, tables [B, mp] int32)`` in
+        :data:`model_runner.CTL_I_COLS` / ``CTL_F_COLS`` order."""
+        B = self.max_batch_size
+        ctl_i = np.zeros((B, 8), np.int32)
+        ctl_f = np.zeros((B, 6), np.float32)
+        ctl_f[:, 1] = 1.0  # top_p
+        ctl_f[:, 5] = 1.0  # repetition
+        tables = np.full((B, self.cache_cfg.max_pages_per_seq),
+                         self.cache_cfg.trash_page, np.int32)
+        for slot, st in rows.items():
+            p = st.request.params
+            # the input token was sampled last step; its KV lands at len-1
+            ctl_i[slot] = (st.tokens[-1], len(st.tokens) - 1, p.top_k, p.min_tokens,
+                           st.n_generated,
+                           np.array(st.seed, np.uint32).view(np.int32), 0, 1)
+            ctl_f[slot] = (p.temperature, p.top_p, p.min_p, p.presence_penalty,
+                           p.frequency_penalty, p.repetition_penalty)
+            tables[slot] = self.alloc.page_table_row(st.request.request_id)
+        return ctl_i, ctl_f, tables
+
+    def _dispatch_burst(self, ctl_i, ctl_f, tables, span: int, mode: str):
+        """Dispatch one burst (returns before it runs on the card); a
+        span-k burst streams the weights k times."""
+        self.sched.record_span(span)
+        self.sched.charge_weight_pass(span)
+        return self.bursts.launch(ctl_i, ctl_f, tables, span, mode)
+
+    def _pipeline_ready(self, snapshot: dict, span: int) -> bool:
+        """May the successor burst dispatch from the device-side carry?
+        Only in steady state: no pending scheduler work, the running set
+        exactly the snapshot (the same objects), and a row with a full
+        span of budget left after the in-flight burst."""
+        if not self.pipeline_bursts or self.spec_k or self._admission_pending():
+            return False
+        if len(self.running) != len(snapshot):
+            return False
+        if any(self.running.get(s) is not st for s, st in snapshot.items()):
+            return False
+        return max(st.request.params.max_tokens - st.n_generated - span
+                   for st in snapshot.values()) >= span
+
+    def _extend_for_successor(self, snapshot: dict, span: int) -> bool:
+        """Extend pages to cover a successor burst (positions ``len - 1 +
+        span .. len - 2 + 2·span``), all or nothing, priced against the
+        free pool first: a successor that does not fit is not
+        dispatched, and never preempts anyone."""
+        extra, plan = 0, []
+        for st in snapshot.values():
+            rem_after = st.request.params.max_tokens - st.n_generated - span
+            if rem_after < 1:
+                continue  # finishes in flight; its overrun writes go to trash
+            need = min(span, rem_after)
+            base = len(st.tokens) - 1 + span
+            have = len(self.alloc.pages_of(st.request.request_id))
+            extra += max(0, self.alloc.pages_needed(base + need) - have)
+            plan.append((st, base, need))
+        if extra > self.alloc.free_pages:
+            return False
+        try:
+            for st, base, need in plan:
+                self.alloc.extend(st.request.request_id, base, need)
+        except MemoryError:  # past max_pages_per_seq: no pipelining
+            return False
+        return True
+
+    def _consume_inflight(self) -> list[StepOutput]:
+        """Read and emit the in-flight burst, first dispatching its
+        successor from the device-side control carry when the pipeline
+        conditions hold (the dispatch comes before the blocking read:
+        that order hides the round trip).  Rows cancelled, finished or
+        preempted since the dispatch are discarded, and so is a row's
+        tail after its finish."""
+        handle, snapshot, span, mode = self._inflight
+        self._inflight = None
+        successor = None
+        if (self._pipeline_ready(snapshot, span)
+                and self._extend_for_successor(snapshot, span)):
+            tables = np.full((self.max_batch_size, self.cache_cfg.max_pages_per_seq),
+                             self.cache_cfg.trash_page, np.int32)
+            for s, st in snapshot.items():
+                tables[s] = self.alloc.page_table_row(st.request.request_id)
+            successor = (self._dispatch_burst(handle.next_ctl, handle.ctl_f, tables,
+                                              span, mode),
+                         dict(snapshot), span, mode)
+            self.sched.dispatch_ahead_total += 1
+        self.sched.charge_decode(span * len(snapshot))
+        sampled = handle.tokens()  # [span, B]: blocks here
+        outputs: list[StepOutput] = []
+        for slot, st in snapshot.items():
+            if self.running.get(slot) is not st:
+                continue
+            for k in range(span):
+                token = int(sampled[k, slot])
+                st.tokens.append(token)
+                self.generation_tokens_total += 1
+                outputs.append(self._emit(st, token))
+                if outputs[-1].finished:
+                    break
+        if successor is not None and any(
+                self.running.get(s) is st for s, st in snapshot.items()):
+            self._inflight = successor
+        return outputs
 
     # -- speculative decoding ------------------------------------------------
 
@@ -1155,10 +1383,24 @@ class NativeEngine:
         self._token_counts.index_put_((slot_t, tok_t), ones, accumulate=True)
         self._output_counts.index_put_((slot_t, tok_t), ones, accumulate=True)
 
-    def _ensure_decode_capacity(self) -> list[StepOutput]:
+    def _ensure_decode_capacity(self, span: int = 1) -> tuple[list[StepOutput], int]:
         """Grow page tables for rows crossing a page boundary; on
-        exhaustion preempt youngest-first so the oldest proceed."""
+        exhaustion preempt youngest-first so the oldest proceed.  With
+        ``span`` > 1 each burst row is extended for its whole burst,
+        all or nothing: if the pool cannot cover the whole batch's
+        headroom the pass decays to span 1 before anyone is preempted.
+        → ``(failures, span achieved)``."""
         failures: list[StepOutput] = []
+        if span > 1:
+            extra = 0
+            for st in self.running.values():
+                if st.n_generated >= st.request.params.max_tokens:
+                    continue
+                need = self._decode_need(st, span)
+                have = len(self.alloc.pages_of(st.request.request_id))
+                extra += max(0, self.alloc.pages_needed(len(st.tokens) - 1 + need) - have)
+            if extra > self.alloc.free_pages:
+                span = 1
         for slot in sorted(self.running,
                            key=lambda s: self.running[s].request.arrival_time):
             st = self.running.get(slot)
@@ -1167,9 +1409,14 @@ class NativeEngine:
             while True:
                 try:
                     # input token occupies index len-1 -> len tokens covered
-                    self.alloc.extend(st.request.request_id, len(st.tokens) - 1, 1)
+                    self.alloc.extend(st.request.request_id, len(st.tokens) - 1,
+                                      self._decode_need(st, span))
                     break
                 except MemoryError:
+                    if span > 1:
+                        # burst headroom never costs anyone their pages
+                        span = 1
+                        continue
                     if self._preempt_youngest(exclude_slot=slot,
                                               than_arrival=st.request.arrival_time):
                         continue
@@ -1184,7 +1431,7 @@ class NativeEngine:
                         request_id=st.request.request_id, token=st.tokens[-1],
                         finished=True, finish_reason="error:kv_capacity"))
                     break
-        return failures
+        return failures, span
 
     # -- bookkeeping ---------------------------------------------------------
 

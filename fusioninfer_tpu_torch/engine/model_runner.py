@@ -11,7 +11,11 @@
   page slot, then attention goes through the one ragged dispatch
   (:func:`_ragged_attn`) over the pages in place.  Every engine forward
   that reads paged context comes here.
-* :func:`decode_step`: the zero-chunk case of :func:`fused_step`.
+* :func:`decode_step`: the zero-chunk case of :func:`fused_step`, one
+  token per batch slot.
+* :func:`decode_burst`: ``n_steps`` decode + sample steps with the
+  sampled tokens fed back on the device (the JAX package's
+  ``decode_burst``); :mod:`engine.graphs` replays it as a CUDA graph.
 
 The pool is updated in place (PyTorch tensors are mutable; the JAX
 package donates and rebinds).  Layers run as a Python loop where the JAX
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from fusioninfer_tpu_torch.engine.kv_cache import CacheConfig
+from fusioninfer_tpu_torch.engine.sampler import apply_penalties, sample
 from fusioninfer_tpu_torch.models.config import ModelConfig
 from fusioninfer_tpu_torch.models.quantization import kv_quantize
 from fusioninfer_tpu_torch.models.transformer import (
@@ -113,7 +118,8 @@ def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
                q_begins: torch.Tensor, q_lens: torch.Tensor,
                page_tables: torch.Tensor, sel: torch.Tensor,
                chunk_sel: torch.Tensor, kv_splits: int = 0,
-               cluster: int | None = None, *, n_tokens: int):
+               cluster: int | None = None, *, n_tokens: int,
+               n_walk: int | None = None):
     """ONE weight pass over a flat ragged token axis → ``(logits [B, W,
     V], chunk_logits [NC, V])``.
 
@@ -132,14 +138,23 @@ def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
     single walk's fixed ``cluster``).  The two groups project through
     SEPARATE lm_head calls, the decode group ``[B·W, D]`` (constant per
     engine) and the chunk group ``[NC, D]`` (the power-of-two chunk
-    count), because GEMM bits vary with the row count: a stream's logits
-    then do not depend on which dispatch computed them.
+    count).
 
-    ``n_tokens``: the live tokens, a prefix of the flat axis (the pack's
-    ``packed_tokens``); the forward runs over them alone.  The padding
-    after them is the JAX layout's compile-signature bucket, of no use
-    to eager PyTorch, and would only launch dead blocks in the walks."""
+    ``n_tokens``: the rows of the flat axis the embed, the layer GEMMs,
+    the norms and the lm_head run over, a prefix of it.  A GEMM's row
+    bits can change with its row count M on the card (cuBLAS picks its
+    kernel by shape), so the engine fixes M where it can: a decode-only
+    forward runs ``n_tokens = B·W`` whatever the number of live slots
+    (the rows past the live tokens are inert padding), which makes a
+    stream's decode tokens independent of its batch on the card as on
+    the CPU.  A forward with chunk rows runs its live packed tokens, a
+    count that moves with the chunks: there a decode row's bits may
+    differ on the card from a decode-only forward's (identical on the
+    CPU).  ``n_walk`` (default ``n_tokens``): the leading tokens the page
+    walk launches over, the live ones; the rest get zero attention
+    without a launch, so the fixed M costs the walk nothing."""
     T = n_tokens
+    n_walk = T if n_walk is None else n_walk
     tokens = tokens[:T]
     ps = cache_cfg.page_size
     dev = tokens.device
@@ -158,16 +173,19 @@ def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
         q, k, v = qkv_proj(cfg, layer, x, rope)
         _scatter_kv(cache, l, k[:, 0], v[:, 0], write_page, write_slot,
                     head_axis=1)
-        attn = _ragged_attn(q[:, 0].contiguous(), cache, page_tables,
+        attn = _ragged_attn(q[:n_walk, 0].contiguous(), cache, page_tables,
                             row_starts, q_begins, q_lens, layer=l,
                             window=cfg.sliding_window, kv_splits=kv_splits,
                             cluster=cluster)
+        if n_walk < T:
+            attn = torch.cat([attn, attn.new_zeros((T - n_walk, attn.shape[1]))])
         x = x + attn[:, None, :] @ layer["wo"]
         x = x + mlp_block(cfg, layer, x)
     h = rms_norm(x, params["final_norm"], cfg.rms_eps)[:, 0]  # [T, D]
     idx = sel.long().clamp(0, T - 1)  # [B, W]
-    cidx = chunk_sel.long().clamp(0, T - 1)  # [NC]
-    chunk_logits = lm_head(cfg, params, h[cidx])
+    V = cfg.vocab_size
+    chunk_logits = (lm_head(cfg, params, h[chunk_sel.long().clamp(0, T - 1)])
+                    if chunk_sel.shape[0] else h.new_zeros((0, V), dtype=torch.float32))
     logits = lm_head(cfg, params, h[idx.reshape(-1)])
     return logits.reshape(*idx.shape, logits.shape[-1]), chunk_logits
 
@@ -177,7 +195,9 @@ def decode_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
                 page_tables: torch.Tensor, active: torch.Tensor,
                 kv_splits: int = 0, cluster: int | None = None) -> torch.Tensor:
     """One decode step for the whole batch → logits [B, V]: the
-    zero-chunk :func:`fused_step`, row ``b`` being token ``b``.
+    zero-chunk :func:`fused_step`, token ``b`` being slot ``b``'s input,
+    all B rows through the GEMMs and the walk (``q_len = active``), as
+    the JAX ``decode_step`` scores them.
 
     tokens [B] (the input token of each row), positions [B] int32 (the
     index it lands at), page_tables [B, max_pages_per_seq] int32, active
@@ -188,6 +208,76 @@ def decode_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
                            rows[:, None], rows[:0], kv_splits, cluster,
                            n_tokens=tokens.shape[0])
     return logits[:, 0]
+
+
+# ctl_i / ctl_f column layout of decode_burst's packed control tensors:
+# every per-row scalar rides one int32 and one float32 tensor (the JAX
+# package's layout; seeds are uint32 bits in an int32 column, adapter ids
+# stay 0 until LoRA is ported)
+CTL_I_COLS = ("tokens", "positions", "top_k", "min_tokens", "gen_count",
+              "seed_bits", "adapter_id", "active")
+CTL_F_COLS = ("temperature", "top_p", "min_p", "presence", "frequency",
+              "repetition")
+
+
+@torch.no_grad()
+def decode_burst(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
+                 cache: dict, ctl_i: torch.Tensor, ctl_f: torch.Tensor,
+                 token_counts: torch.Tensor, output_counts: torch.Tensor,
+                 suppress: torch.Tensor, page_tables: torch.Tensor,
+                 n_steps: int = 8, sample_mode: str = "filtered",
+                 kv_splits: int = 0, cluster: int | None = None):
+    """``n_steps`` decode + sample steps with on-device token feedback →
+    ``(sampled [n_steps, B] int64, next_ctl_i [B, 8] int32)``.
+
+    ``ctl_i`` [B, 8] int32 and ``ctl_f`` [B, 6] f32 hold the rows'
+    controls (:data:`CTL_I_COLS`, :data:`CTL_F_COLS`); ``token_counts``,
+    ``output_counts`` [B, V] int32 are bumped in place by each active
+    row's sampled token, ``suppress`` [B, V] bool is the min-tokens
+    stop-id mask; page_tables [B, mp] int32.  Each step runs the fixed-M
+    :func:`decode_step` (all B slots), :func:`sampler.apply_penalties`,
+    the min-tokens suppression from the device ``gen_count``, and
+    :func:`sampler.sample` (static ``sample_mode``) at counter
+    ``gen_count``: the single-step path's math, so a burst gives what
+    ``n_steps`` sequential decode + sample calls give.  A row whose next
+    position falls past its page table is deactivated for the step
+    (``pos_ok``): its write goes to the trash page instead of indexing
+    past the table.  Rows that finish mid-burst keep decoding until it
+    ends; the engine discards those tokens.
+
+    ``next_ctl_i`` carries the advanced tokens, positions and
+    ``gen_count`` (other columns copied): a successor burst dispatches
+    from it without a host round trip.  Nothing is read back to the
+    host, so :mod:`engine.graphs` captures this call as it stands."""
+    # column-major copies: the walk takes the positions as a contiguous
+    # int32 row
+    cols_i, cols_f = ctl_i.t().contiguous(), ctl_f.t().contiguous()
+    tokens, pos, top_k, min_toks, gcounts = cols_i[:5]
+    seeds = cols_i[5].long() & 0xFFFF_FFFF
+    active = cols_i[7] > 0
+    temps, top_ps, min_ps, presence, frequency, repetition = cols_f
+    covered = page_tables.shape[1] * cache_cfg.page_size
+    sampled = []
+    for _ in range(n_steps):
+        act = active & (pos < covered)
+        logits = decode_step(cfg, cache_cfg, params, cache, tokens, pos,
+                             page_tables, act, kv_splits, cluster)
+        logits = apply_penalties(logits, token_counts, output_counts,
+                                 presence, frequency, repetition)
+        logits = logits.masked_fill((gcounts < min_toks)[:, None] & suppress,
+                                    float("-inf"))
+        tok = sample(logits, temps, top_k, top_ps, min_ps, seeds, gcounts,
+                     mode=sample_mode)
+        inc = act.to(torch.int32)
+        token_counts.scatter_add_(1, tok[:, None], inc[:, None])
+        output_counts.scatter_add_(1, tok[:, None], inc[:, None])
+        tokens = torch.where(act, tok.to(torch.int32), tokens)
+        pos = pos + inc
+        gcounts = gcounts + inc
+        sampled.append(tok)
+    next_ctl = torch.stack([tokens, pos, ctl_i[:, 2], ctl_i[:, 3], gcounts,
+                            ctl_i[:, 5], ctl_i[:, 6], ctl_i[:, 7]], dim=1)
+    return torch.stack(sampled), next_ctl
 
 
 def prefill_buckets(max_len: int, smallest: int = 32) -> list[int]:

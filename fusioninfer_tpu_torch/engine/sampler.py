@@ -2,40 +2,57 @@
 seeds, the candidate sampler and the speculative window draws (port of
 ``fusioninfer_tpu/engine/sampler.py``).
 
-Each row carries its own sampling params.  A sampled row draws from a
-``torch.Generator`` seeded by ``(request seed, tokens generated so far)``
-(:func:`row_generator`), counter-based like the JAX package's
-``fold_in(seed, n)`` keys, so a seeded request produces the same tokens
-whether it runs alone or packed with others, and after a preemption
-resumes the stream where it stopped.  The bits differ from the JAX
-package's (different generators).
+Each row carries its own sampling params, as tensors.  A sampled row's
+randomness is a pure function of ``(request seed, tokens generated so
+far, stream)``: :func:`gumbel_noise` hashes the three and each column
+index into uniforms with integer tensor ops, on the logits' device, and
+a draw is the Gumbel-max ``argmax(scaled logits + noise)``.  This is the
+counterpart of the JAX package's ``make_row_keys`` (``fold_in(seed,
+n)``): no generator object, nothing built on the host, so the same draw
+runs eagerly, inside a decode burst whose counters advance on the
+device, and inside a CUDA graph replayed with new seeds.  The draw never
+depends on the batch, and neither do the logits of a decode-only forward
+(its GEMMs run at a fixed row count, :func:`model_runner.fused_step`): a
+seeded request produces the same tokens whether it runs alone or packed
+with others, per token or in bursts, and after a preemption resumes the
+stream where it stopped, on the card as on the CPU.  Two cases hold on
+the CPU only: speculation on against off, and decode rows fused into one
+forward with prefill chunks (``--decode-burst 1 --fused-step``), where
+the GEMMs' row count differs and on the card a near-tie can flip.  The
+bits differ from the JAX package's (a different hash).
 
 Every row draws by its own params, never by its batch's: a row with
 ``0 < top_k <= LM_HEAD_TOPK`` and ``min_p`` off draws from its candidate
 set (:func:`sample_topk` over :func:`topk_ordered`'s 64 best logits, the
 set the JAX package's fused lm_head top-k path computes); a row with no
 filter draws from its temperature-scaled logits; any other row from
-:func:`filter_logits`.  ``sample`` sorts the rows into these kinds on
-the host from their params, so a batch skips the work of the kinds it
-lacks.
+:func:`filter_logits`.  :func:`sample`'s static ``mode``
+(:func:`sample_mode`, the JAX engine's ``_sample_mode``) only skips the
+work of row kinds a batch lacks: a row gets the same token in every mode
+that can see it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
-# generator streams of one (seed, counter): 0 draws the token; the
-# speculative window's acceptance uniform and rejection replacement take
-# 1 and 2, whose keys sit this far past stream 0's.  Stream 0 of another
-# counter reaches them only ~427 807 tokens away (the seed step is
-# 1 000 003), beyond any sequence length, and in the low 32 bits (the
-# CPU generator's seed) they differ from stream 0 of the same key too.
-_STREAM_STEP = 0x9E37_79B9
 # candidate-set width: the largest `top_k` that draws from the candidates
 LM_HEAD_TOPK = 64
+SAMPLE_MODES = ("greedy", "plain", "topk", "filtered")
+# draw streams of one (seed, counter): 0 draws the token; the speculative
+# window's acceptance uniform and rejection replacement take 1 and 2
+N_STREAMS = 3
+
+_MASK32 = 0xFFFF_FFFF
+# odd multipliers below 2**31: a 32-bit value times one stays inside
+# int64, so the hash is exact on every device
+_MUL_A = 0x7FEB_352D
+_MUL_B = 0x2C1B_3C6D
+# spreads column indices over the 32-bit key space
+_COLUMN_STEP = 0x9E37_79B9
 
 
 @dataclass(frozen=True)
@@ -67,11 +84,36 @@ class SamplingParams:
                 or self.repetition_penalty != 1.0)
 
 
+def sample_mode(params: Iterable[SamplingParams]) -> str:
+    """The static mode of :func:`sample` for a batch, from its rows'
+    params on the host (the JAX engine's ``_sample_mode``): "greedy" when
+    every row is greedy, "plain" when no sampled row filters, "topk" when
+    every sampled row is a candidate row, else "filtered"."""
+    mode = "greedy"
+    for p in params:
+        if p.temperature <= 0.0:
+            continue
+        if p.min_p > 0.0:
+            return "filtered"
+        if 0 < p.top_k <= LM_HEAD_TOPK:
+            row = "topk"
+        elif p.top_k == 0 and p.top_p >= 1.0:
+            row = "plain"
+        else:
+            return "filtered"
+        if mode == "greedy":
+            mode = row
+        elif mode != row:
+            return "filtered"
+    return mode
+
+
 def apply_penalties(logits, token_counts, output_counts, presence, frequency,
                     repetition) -> torch.Tensor:
     """OpenAI/vLLM semantics: presence/frequency penalize generated tokens;
     the repetition penalty spans prompt + output.  logits [B, V] f32,
-    counts [B, V] int, per-row params [B]."""
+    counts [B, V] int, per-row params [B].  Neutral params (0, 0, 1)
+    leave every logit's bits as they were."""
     seen = token_counts > 0
     rep = repetition[:, None]
     logits = torch.where(seen, torch.where(logits > 0, logits / rep,
@@ -97,134 +139,150 @@ def topk_ordered(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def filter_logits(logits, temperature, top_k, top_p, min_p=None) -> torch.Tensor:
     """Temperature-scaled logits with min_p/top-k/top-p masks applied
-    (-inf outside the sampleable support)."""
+    (-inf outside the sampleable support).  Masks fill in place of
+    building constant tensors from the host, so the call can be
+    captured in a CUDA graph."""
     B, V = logits.shape
-    ninf = torch.tensor(float("-inf"), device=logits.device)
+    ninf = float("-inf")
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
     if min_p is not None:
         probs = torch.softmax(scaled, dim=-1)
         floor = min_p[:, None] * probs.amax(dim=-1, keepdim=True)
-        scaled = torch.where(probs < floor, ninf, scaled)
+        scaled = scaled.masked_fill(probs < floor, ninf)
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
     k_idx = (torch.where(top_k > 0, top_k, torch.full_like(top_k, V)) - 1
              ).clamp(0, V - 1).long()
     kth = torch.gather(sorted_desc, 1, k_idx[:, None])
-    scaled = torch.where(scaled < kth, ninf, scaled)
+    scaled = scaled.masked_fill(scaled < kth, ninf)
     sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
     sorted_probs = torch.softmax(sorted_logits, dim=-1)
     cumulative = torch.cumsum(sorted_probs, dim=-1)
     cutoff = (cumulative - sorted_probs) < top_p[:, None]
-    threshold = torch.where(cutoff, sorted_logits,
-                            torch.tensor(float("inf"), device=logits.device)
-                            ).amin(dim=-1, keepdim=True)
-    return torch.where(scaled < threshold, ninf, scaled)
+    threshold = sorted_logits.masked_fill(~cutoff, float("inf")).amin(dim=-1, keepdim=True)
+    return scaled.masked_fill(scaled < threshold, ninf)
 
 
-def row_generator(seed: int, counter: int, device, stream: int = 0) -> torch.Generator:
-    """The generator of draw ``counter`` of stream ``seed``; ``stream`` 1
-    and 2 are the speculative window's uniform and replacement draws of
-    that position."""
-    g = torch.Generator(device=device)
-    g.manual_seed((int(seed) * 1_000_003 + int(counter) + stream * _STREAM_STEP)
-                  & 0x7FFF_FFFF_FFFF_FFFF)
-    return g
+# -- the counter-based draw ---------------------------------------------------
 
 
-def _draw(probs: torch.Tensor, seeds, counters, stream: int = 0) -> torch.Tensor:
-    """One multinomial draw per row of ``probs [N, V]``, row ``i`` from
-    :func:`row_generator` ``(seeds[i], counters[i], stream)`` → [N] int64."""
-    return torch.stack([
-        torch.multinomial(probs[i], 1, generator=row_generator(
-            seeds[i], counters[i], probs.device, stream))[0]
-        for i in range(probs.shape[0])])
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer finalizer over int64 tensors holding
+    values in ``[0, 2**32)``."""
+    x = x ^ (x >> 16)
+    x = (x * _MUL_A) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * _MUL_B) & _MASK32
+    return x ^ (x >> 16)
 
 
-def _is_candidate_row(temp: float, top_k: int, min_p: float, cap: int) -> bool:
-    return temp > 0.0 and 0 < top_k <= cap and min_p <= 0.0
+def _row_keys(seeds: torch.Tensor, counters: torch.Tensor, stream: int) -> torch.Tensor:
+    """[N] int64 keys in ``[0, 2**32)``, one per ``(seed, counter,
+    stream)``; ``seeds`` are taken modulo 2**32 (their uint32 bits)."""
+    s = _mix32(seeds.long() & _MASK32)
+    return _mix32((s + counters.long() * N_STREAMS + stream) & _MASK32)
 
 
-def _is_plain_row(temp: float, top_k: int, top_p: float, min_p: float) -> bool:
-    return temp > 0.0 and top_k == 0 and top_p >= 1.0 and min_p <= 0.0
+def uniforms(seeds, counters, stream: int, n: int) -> torch.Tensor:
+    """``[N, n]`` f32 uniforms in (0, 1): column ``j`` of row ``i`` is a
+    pure function of ``(seeds[i], counters[i], stream, j)`` (24-bit
+    resolution, exactly representable), so a row's draws never depend on
+    its batch, on ``n`` beyond column ``j`` or on the device's state."""
+    key = _row_keys(seeds, counters, stream)[:, None]
+    cols = torch.arange(n, device=key.device, dtype=torch.int64)
+    h = _mix32((_mix32(key ^ ((cols * _COLUMN_STEP) & _MASK32)) + key) & _MASK32)
+    return ((h >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
 
 
-def sample_topk(vals, idx, temperature, top_k, top_p, seeds, counters) -> torch.Tensor:
-    """The candidate sampler → [N] int64, where ``sample``'s candidate rows
-    draw (the JAX package's fused lm_head top-k path draws the same way).
+def gumbel_noise(seeds, counters, stream: int, n: int) -> torch.Tensor:
+    """``[N, n]`` standard Gumbel noise from :func:`uniforms`; ``argmax
+    (scaled logits + noise)`` draws from ``softmax(scaled logits)``."""
+    return -torch.log(-torch.log(uniforms(seeds, counters, stream, n)))
+
+
+def _col(x, dtype, device) -> torch.Tensor:
+    """A per-row parameter as a tensor: a tensor passes as it is (cast if
+    needed), a host sequence is uploaded (outside CUDA-graph capture)."""
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def _params(logits, temperature, top_k, top_p, min_p, seeds, counters):
+    dev = logits.device
+    return (_col(temperature, torch.float32, dev), _col(top_k, torch.int64, dev),
+            _col(top_p, torch.float32, dev), _col(min_p, torch.float32, dev),
+            _col(seeds, torch.int64, dev), _col(counters, torch.int64, dev))
+
+
+def sample_topk(vals, idx, temperature, top_k, top_p, seeds, counters,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The candidate sampler → [N] int64, where candidate rows draw (the
+    JAX package's fused lm_head top-k path draws the same way).
 
     ``vals``/``idx`` [N, K]: penalized UNSCALED logits in
-    :func:`topk_ordered`'s order and their vocab ids;
-    ``temperature``/``top_k``/``top_p``/``seeds``/``counters`` host
-    sequences of N.  Temperature scaling, a rank-based top-k mask (rank <
-    top_k IS the top-k set; exact ties at the boundary resolve by vocab
-    index), the nucleus mask over the candidate distribution, one draw
-    over [K].  Greedy rows read candidate 0, the first maximum."""
-    out = idx[:, 0].clone()
-    rows = [i for i, t in enumerate(temperature) if t > 0.0]
-    if not rows:
-        return out
+    :func:`topk_ordered`'s order and their vocab ids; per-row params as
+    tensors or host sequences of N.  Temperature scaling, a rank-based
+    top-k mask (rank < top_k IS the top-k set; exact ties at the boundary
+    resolve by vocab index), the nucleus mask over the candidate
+    distribution, one Gumbel-max draw over [K] (``noise``: stream 0's
+    first K columns, computed here when None).  Greedy rows read
+    candidate 0, the first maximum."""
     dev = vals.device
+    temp = _col(temperature, torch.float32, dev)
+    kk = _col(top_k, torch.int64, dev).clamp(min=1)
+    pp = _col(top_p, torch.float32, dev)
     K = vals.shape[1]
-    sel = torch.tensor(rows, device=dev)
-    temp = torch.tensor([max(float(temperature[i]), 1e-6) for i in rows], device=dev)
-    kk = torch.tensor([max(int(top_k[i]), 1) for i in rows], device=dev)
-    pp = torch.tensor([float(top_p[i]) for i in rows], device=dev)
-    ninf = torch.tensor(float("-inf"), device=dev)
-    scaled = vals[sel] / temp[:, None]
-    scaled = torch.where(torch.arange(K, device=dev)[None, :] < kk[:, None], scaled, ninf)
+    ninf = float("-inf")
+    scaled = vals / temp.clamp(min=1e-6)[:, None]
+    scaled = scaled.masked_fill(torch.arange(K, device=dev)[None, :] >= kk[:, None], ninf)
     probs = torch.softmax(scaled, dim=-1)
     cumulative = torch.cumsum(probs, dim=-1)
-    scaled = torch.where((cumulative - probs) < pp[:, None], scaled, ninf)
-    j = _draw(torch.softmax(scaled, dim=-1), [seeds[i] for i in rows],
-              [counters[i] for i in rows])
-    out[sel] = torch.gather(idx[sel], 1, j[:, None])[:, 0]
-    return out
+    scaled = scaled.masked_fill((cumulative - probs) >= pp[:, None], ninf)
+    if noise is None:
+        noise = gumbel_noise(_col(seeds, torch.int64, dev),
+                             _col(counters, torch.int64, dev), 0, K)
+    j = torch.argmax(scaled + noise[:, :K], dim=-1)
+    drawn = torch.gather(idx, 1, j[:, None])[:, 0]
+    return torch.where(temp > 0.0, drawn, idx[:, 0])
 
 
-def sample(logits, temperature, top_k, top_p, min_p, seeds, counters) -> torch.Tensor:
+def sample(logits, temperature, top_k, top_p, min_p, seeds, counters,
+           mode: str = "filtered") -> torch.Tensor:
     """One token per row of ``logits [N, V]`` → [N] int64; temperature <=
-    0 is greedy.  ``temperature``/``top_k``/``top_p``/``min_p``/``seeds``/
-    ``counters`` are host sequences of N.
+    0 is greedy.  The per-row params are tensors on the logits' device
+    (or host sequences, uploaded once); nothing is read back to the
+    host, so the call can be captured in a CUDA graph.
 
-    A candidate row draws through :func:`sample_topk` over
-    :func:`topk_ordered`'s candidates, a plain row from
-    its temperature-scaled logits, any other row from
-    :func:`filter_logits`: a row's draw never depends on its
-    neighbours."""
-    out = torch.argmax(logits, dim=-1)
-    dev = logits.device
-    cap = min(LM_HEAD_TOPK, logits.shape[-1])
-    cand, plain, rest = [], [], []
-    for i, t in enumerate(temperature):
-        if t <= 0.0:
-            continue
-        if _is_candidate_row(t, top_k[i], min_p[i], cap):
-            cand.append(i)
-        elif _is_plain_row(t, top_k[i], top_p[i], min_p[i]):
-            plain.append(i)
-        else:
-            rest.append(i)
-
-    def col(rows, vals, dtype=torch.float32):
-        return torch.tensor([vals[i] for i in rows], dtype=dtype, device=dev)
-
-    if cand:
-        sel = torch.tensor(cand, device=dev)
-        vals, idx = topk_ordered(logits[sel], cap)
-        out[sel] = sample_topk(vals, idx, *([xs[i] for i in cand] for xs in (
-            temperature, top_k, top_p, seeds, counters)))
-    if plain:
-        sel = torch.tensor(plain, device=dev)
-        scaled = logits[sel] / col(plain, temperature).clamp(min=1e-6)[:, None]
-        out[sel] = _draw(torch.softmax(scaled, dim=-1), [seeds[i] for i in plain],
-                         [counters[i] for i in plain])
-    if rest:
-        sel = torch.tensor(rest, device=dev)
-        scaled = filter_logits(logits[sel], col(rest, temperature),
-                               col(rest, top_k, torch.int64), col(rest, top_p),
-                               col(rest, min_p))
-        out[sel] = _draw(torch.softmax(scaled, dim=-1), [seeds[i] for i in rest],
-                         [counters[i] for i in rest])
-    return out
+    ``mode`` (:func:`sample_mode`) is static: "greedy" computes the
+    argmax alone, "plain" the temperature draw, "topk" the candidate
+    draw, "filtered" all three kinds, each row taking its own.  A
+    candidate row draws through :func:`sample_topk`, a plain row from its
+    temperature-scaled logits, any other row from :func:`filter_logits`:
+    in every mode that can see a row, the row gets the same token, and
+    it never depends on its neighbours."""
+    if mode not in SAMPLE_MODES:
+        raise ValueError(f"unknown sample mode {mode!r}")
+    greedy = torch.argmax(logits, dim=-1)
+    if mode == "greedy":
+        return greedy
+    temp, kk, pp, mp, seeds, counters = _params(logits, temperature, top_k, top_p,
+                                                min_p, seeds, counters)
+    drawn_rows = temp > 0.0
+    K = min(LM_HEAD_TOPK, logits.shape[-1])
+    if mode == "topk":
+        vals, idx = topk_ordered(logits, K)
+        return torch.where(drawn_rows, sample_topk(vals, idx, temp, kk, pp, seeds,
+                                                   counters), greedy)
+    noise = gumbel_noise(seeds, counters, 0, logits.shape[-1])
+    scaled = logits / temp.clamp(min=1e-6)[:, None]
+    plain = torch.argmax(scaled + noise, dim=-1)
+    if mode == "plain":
+        return torch.where(drawn_rows, plain, greedy)
+    filtered = torch.argmax(filter_logits(logits, temp, kk, pp, mp) + noise, dim=-1)
+    vals, idx = topk_ordered(logits, K)
+    cand = sample_topk(vals, idx, temp, kk, pp, seeds, counters, noise=noise)
+    is_cand = (kk > 0) & (kk <= LM_HEAD_TOPK) & (mp <= 0.0)
+    is_plain = (kk == 0) & (pp >= 1.0) & (mp <= 0.0)
+    tok = torch.where(is_cand, cand, torch.where(is_plain, plain, filtered))
+    return torch.where(drawn_rows, tok, greedy)
 
 
 def spec_window_draws(logits_w, draft_next, temperature, top_k, top_p, min_p,
@@ -240,45 +298,40 @@ def spec_window_draws(logits_w, draft_next, temperature, top_k, top_p, min_p,
     * ``p_draft[b, j]``: the probability of ``draft_next[b, j]`` (the
       draft proposed after position j) under :func:`filter_logits`'s
       distribution over the full vocab;
-    * ``u[b, j]``: the acceptance uniform, generator stream 1 of that
-      (seed, counter);
+    * ``u[b, j]``: the acceptance uniform, stream 1 of that (seed,
+      counter);
     * ``repl[b, j]``: the rejection replacement, drawn from that
       distribution with the draft removed (for a delta proposal,
       norm((p - q)^+) is p restricted to != draft), stream 2.
 
-    ``draft_next`` [B, C] int on the logits' device; the params, seeds
-    and counters host sequences of B.  The walk accepts while ``u <
-    p_draft`` (strict: ``u`` may be 0 and a draft outside the support has
-    p_draft 0), emits ``repl`` at the first rejection and the bonus
-    ``full[:, k]`` after a full acceptance; that keeps the target
-    distribution exactly."""
+    ``draft_next`` [B, C] int on the logits' device; per-row params,
+    seeds and counters as tensors or host sequences of B.  Every draw is
+    made on the device.  The walk accepts while ``u < p_draft`` (strict:
+    a draft outside the support has p_draft 0), emits ``repl`` at the
+    first rejection and the bonus ``full[:, k]`` after a full acceptance;
+    that keeps the target distribution exactly."""
     B, C, V = logits_w.shape
     dev = logits_w.device
     flat = logits_w.reshape(B * C, V)
+    temp, kk, pp, mp, seeds, counters = _params(flat[:B], temperature, top_k, top_p,
+                                                min_p, seeds, counters)
 
-    def rep(xs):
-        return [xs[b] for b in range(B) for _ in range(C)]
+    def rep(x):
+        return x.repeat_interleave(C)
 
-    seeds_f = rep(seeds)
-    counters_f = [int(counters[b]) + j for b in range(B) for j in range(C)]
-    temps, ks, ps, mps = rep(temperature), rep(top_k), rep(top_p), rep(min_p)
+    temps, ks, ps, mps, seeds_f = rep(temp), rep(kk), rep(pp), rep(mp), rep(seeds)
+    counters_f = rep(counters) + torch.arange(C, device=dev).repeat(B)
     full = sample(flat, temps, ks, ps, mps, seeds_f, counters_f)
-    scaled = filter_logits(
-        flat, torch.tensor(temps, dtype=torch.float32, device=dev),
-        torch.tensor(ks, dtype=torch.int64, device=dev),
-        torch.tensor(ps, dtype=torch.float32, device=dev),
-        torch.tensor(mps, dtype=torch.float32, device=dev))
+    scaled = filter_logits(flat, temps, ks, ps, mps)
     rows = torch.arange(B * C, device=dev)
     d = draft_next.reshape(B * C).long()
     p_draft = torch.softmax(scaled, dim=-1)[rows, d]
-    u = torch.stack([
-        torch.rand((), generator=row_generator(s, c, dev, stream=1), device=dev)
-        for s, c in zip(seeds_f, counters_f)])
+    u = uniforms(seeds_f, counters_f, 1, 1)[:, 0]
     masked = scaled.clone()
     masked[rows, d] = float("-inf")
     # a support of the draft alone leaves nothing to replace it with; its
     # p_draft is 1 and the walk accepts it, so any row serves there
     masked = torch.where(torch.isfinite(masked).any(dim=-1, keepdim=True), masked, scaled)
-    repl = _draw(torch.softmax(masked, dim=-1), seeds_f, counters_f, stream=2)
+    repl = torch.argmax(masked + gumbel_noise(seeds_f, counters_f, 2, V), dim=-1)
     return (full.reshape(B, C), p_draft.reshape(B, C), u.reshape(B, C),
             repl.reshape(B, C))

@@ -14,9 +14,12 @@ state.  :func:`derive_token_budget` converts a MEASURED per-token
 prefill latency into a tokens/step budget; the engine times the forward
 (:meth:`NativeEngine.calibrate_token_budget`) and this function only
 does the arithmetic.  The ledger keeps every counter of the JAX one,
-also those of features this port does not have yet (decode bursts, the
-host KV tier, deadlines, SLO tiers), which stay 0, so that a snapshot
-reads the same in both packages.
+also those of features this port does not have yet (the host KV tier,
+deadlines, SLO tiers), which stay 0, so that a snapshot reads the same
+in both packages.  Decode bursts feed ``burst_span_steps``
+(:meth:`record_span`, one entry per dispatch, seeded by the engine with
+its two spans), ``burst_clamped_total``, ``dispatch_ahead_total`` and
+``weight_passes_total`` (a span-k burst is k weight passes).
 """
 
 from __future__ import annotations

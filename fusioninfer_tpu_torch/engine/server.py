@@ -441,7 +441,7 @@ class EngineServer:
                 t.join(timeout)
 
 
-def engine_from_args(args) -> NativeEngine:
+def engine_from_args(args, params: dict | None = None) -> NativeEngine:
     """Build the serve engine from ``engine serve`` flags, with the JAX
     server's meanings: prefix caching on unless ``--no-prefix-caching``
     (the pool then grows into free memory); ``--tokens-per-step 0`` (the
@@ -451,9 +451,12 @@ def engine_from_args(args) -> NativeEngine:
     still seeds a budget of that many tokens; ``--no-fused-step`` splits
     mixed steps into a chunk forward and a decode forward;
     ``--speculative-ngram K`` turns n-gram speculative decoding on with up
-    to K drafts a row (0 = off).  The split walk engages from the
-    static cache config, and ``--kv-cache-dtype int8`` makes the pages
-    int8."""
+    to K drafts a row (0 = off); ``--decode-burst N`` (default 8) runs
+    up to N decode steps a dispatch, pipelined unless
+    ``--no-decode-pipeline``.  The split walk engages from the static
+    cache config, and ``--kv-cache-dtype int8`` makes the pages int8.
+    ``params``: weights already on the device (None draws them from
+    ``--seed``)."""
     from fusioninfer_tpu_torch.engine.engine import resolve_device
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
@@ -469,12 +472,14 @@ def engine_from_args(args) -> NativeEngine:
                 cache_cfg.page_size)
     engine = NativeEngine(
         cfg, cache_cfg, max_batch_size=args.max_batch_size, seed=args.seed,
-        device=device, enable_prefix_caching=prefix_caching,
+        params=params, device=device, enable_prefix_caching=prefix_caching,
         prefill_chunk_size=args.prefill_chunk_size or None,
         token_budget=(None if args.no_token_budget
                       else args.tokens_per_step or None),
         fused_step=args.fused_step,
-        speculative_k=args.speculative_ngram or None)
+        speculative_k=args.speculative_ngram or None,
+        decode_burst_steps=max(1, args.decode_burst),
+        pipeline_bursts=not args.no_decode_pipeline)
     if not args.no_token_budget and engine.token_budget is None:
         budget = engine.calibrate_token_budget()
         logger.info("token budget derived from measured step latency: "

@@ -20,7 +20,10 @@ KERNELS = ("flash_attention",
            "paged_verify_attention", "paged_verify_attention_int8")
 
 # kernel name -> launches since the last reset; a wrapper adds one where
-# it launches its kernel and nowhere else
+# it launches its kernel and nowhere else.  A CUDA graph's capture
+# launches nothing and its replay runs no wrapper: the graph runner
+# (engine/graphs.py) takes back what the wrappers counted during the
+# capture and adds it again at each replay, which launches those kernels
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -37,6 +40,18 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def count_launches(counts: dict[str, int]) -> None:
+    """Add a replayed graph's launches, ``{kernel name: launches}``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+def restore_launches(counts: dict[str, int]) -> None:
+    """Set every count back to ``counts`` (what :func:`launches` gave
+    before a capture)."""
+    LAUNCHES.update(counts)
 
 
 def reset_launches() -> None:

@@ -35,10 +35,6 @@ from fusioninfer_tpu_torch.engine import sched as tsched
 from fusioninfer_tpu_torch.engine.server import engine_from_args
 from fusioninfer_tpu_torch.models import config as tcfg
 
-# decode bursts are not ported: the JAX ledger pre-seeds its span-1
-# bucket, the port has none
-NOT_PORTED = ("burst_span_steps",)
-
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
@@ -60,8 +56,7 @@ def weights():
 
 
 def _ledger(engine) -> dict:
-    snap = engine.sched.snapshot()
-    return {k: v for k, v in snap.items() if k not in NOT_PORTED}
+    return engine.sched.snapshot()
 
 
 # -- the ledger ----------------------------------------------------------------

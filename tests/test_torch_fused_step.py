@@ -353,3 +353,51 @@ def test_engine_fixes_one_walk_cluster_whatever_T(weights, monkeypatch):
     assert min(Ts) == 1 and max(Ts) >= 40
     assert {tpa.pick_cluster_size(T, cfg.n_kv_heads, 8, 132) for T in Ts} != {fixed}
     assert engine.sched.fused_steps_total > 0
+
+
+@pytest.mark.parametrize("spec_k", [None, 3])
+def test_decode_forwards_run_their_gemms_at_fixed_rows(weights, monkeypatch, spec_k):
+    """A spy on ``qkv_proj``'s row count: every decode-only forward of a
+    per-token engine (the fused step off, so chunk forwards run apart)
+    runs its GEMMs at ``B·W`` rows (W = 1 + speculative_k), with one slot
+    live or all B, and its walk over the live tokens only."""
+    _, ct, _, pt = weights
+    gemm_rows, walk_tokens, live_rows, in_decode = [], [], [], [False]
+    real_qkv, real_attn = tmr.qkv_proj, tmr._ragged_attn
+
+    def qkv(cfg, layer, x, rope):
+        if in_decode[0]:
+            gemm_rows.append(x.shape[0])
+        return real_qkv(cfg, layer, x, rope)
+
+    def attn(q, *a, **k):
+        if in_decode[0]:
+            walk_tokens.append(q.shape[0])
+        return real_attn(q, *a, **k)
+
+    monkeypatch.setattr(tmr, "qkv_proj", qkv)
+    monkeypatch.setattr(tmr, "_ragged_attn", attn)
+    engine = teng.NativeEngine(ct, tkv.CacheConfig(n_pages=65, page_size=16,
+                                                   max_pages_per_seq=16),
+                               max_batch_size=4, params=pt, device="cpu",
+                               token_budget=16, fused_step=False, speculative_k=spec_k)
+    real_decode = engine._decode
+
+    def decode():
+        live_rows.append(len(engine._live()))
+        in_decode[0] = True
+        try:
+            return real_decode()
+        finally:
+            in_decode[0] = False
+
+    engine._decode = decode
+    _run(engine, [("one", [1, 2, 3] * 4, 6)])
+    _run(engine, [(f"r{i}", [4 + i, 5, 6] * 4, 6) for i in range(4)]
+         + [("long", list(range(3, 60)), 2)])
+    W = 1 + (spec_k or 0)
+    assert 1 in live_rows and 4 in live_rows
+    assert gemm_rows and set(gemm_rows) == {4 * W}
+    assert min(walk_tokens) == 1 and max(walk_tokens) <= 4 * W
+    if spec_k is None:
+        assert set(walk_tokens) <= {1, 2, 3, 4} and 4 in walk_tokens

@@ -170,6 +170,105 @@ def test_every_row_draws_by_its_own_params_in_every_mode():
                        torch.argmax(logits, dim=-1))
 
 
+def test_draw_depends_only_on_seed_counter_and_stream():
+    """The counter-based draw: a row's uniforms are the same alone and in
+    any batch, whatever the column count (a prefix stays a prefix) and
+    the index dtype; a seed counts by its uint32 bits; another counter or
+    stream gives other values, and streams 1 and 2 look independent of
+    stream 0 (means near 1/2, correlations near 0 over 4000 keys)."""
+    seeds = torch.tensor([7, 7, 123456789, 2**32 + 7, -1, 0])
+    counters = torch.tensor([0, 1, 0, 0, 5, 2**20])
+    batch = tsamp.uniforms(seeds, counters, 0, 64)
+    for i in range(len(seeds)):
+        assert torch.equal(tsamp.uniforms(seeds[i:i + 1], counters[i:i + 1], 0, 64)[0],
+                           batch[i])
+    assert torch.equal(tsamp.uniforms(seeds.int(), counters.int(), 0, 9), batch[:, :9])
+    assert torch.equal(batch[3], batch[0]) and not torch.equal(batch[0], batch[1])
+    assert torch.equal(tsamp.uniforms(seeds[4:5] & 0xFFFF_FFFF, counters[4:5], 0, 64)[0],
+                       batch[4])
+    n = 4000
+    keys = torch.arange(n) * 7919, torch.arange(n) % 13
+    u = torch.stack([tsamp.uniforms(*keys, s, 1)[:, 0] for s in range(3)]).double()
+    assert ((u > 0) & (u < 1)).all()
+    assert (u.mean(dim=1) - 0.5).abs().max() < 0.03
+    corr = torch.corrcoef(u)
+    assert (corr - torch.eye(3, dtype=corr.dtype)).abs().max() < 0.06
+    g = tsamp.gumbel_noise(*keys, 0, 1)[:, 0].double()
+    assert abs(g.mean() - 0.5772) < 0.06  # the Euler-Mascheroni constant
+
+
+ROW_KINDS = {
+    "greedy": dict(temperature=0.0, top_k=0, top_p=1.0, min_p=0.0),
+    "plain": dict(temperature=0.9, top_k=0, top_p=1.0, min_p=0.0),
+    "candidate": dict(temperature=0.7, top_k=12, top_p=0.9, min_p=0.0),
+    "top_p": dict(temperature=1.1, top_k=0, top_p=0.8, min_p=0.0),
+    "min_p": dict(temperature=0.8, top_k=0, top_p=1.0, min_p=0.05),
+    "top_k over the cap": dict(temperature=0.8, top_k=100, top_p=1.0, min_p=0.0),
+}
+# the modes a row of each kind can be sampled in (sample_mode's rule)
+SEEN_BY = {"greedy": tsamp.SAMPLE_MODES, "plain": ("plain", "filtered"),
+           "candidate": ("topk", "filtered"), "top_p": ("filtered",),
+           "min_p": ("filtered",), "top_k over the cap": ("filtered",)}
+
+
+@pytest.mark.parametrize("kind", list(ROW_KINDS))
+def test_tensor_sampler_gives_a_row_the_same_token_in_every_mode(kind):
+    """Rows of one kind, their params as device tensors: the same tokens
+    in every mode that can see them, the same as each row alone, and in
+    a mixed batch under "filtered" (the mode ``sample_mode`` picks for
+    it); a greedy row is the argmax."""
+    V, N = 500, 6
+    logits = torch.randn((N, V), generator=torch.Generator().manual_seed(4)) * 2.5
+    p = tsamp.SamplingParams(**ROW_KINDS[kind])
+    cols = (torch.full((N,), p.temperature), torch.full((N,), p.top_k),
+            torch.full((N,), p.top_p), torch.full((N,), p.min_p),
+            torch.arange(N) + 40, torch.arange(N) * 3)
+    assert tsamp.sample_mode([p] * N) == SEEN_BY[kind][0]
+    toks = {m: tsamp.sample(logits, *cols, mode=m) for m in SEEN_BY[kind]}
+    ref = toks[SEEN_BY[kind][0]]
+    assert all(torch.equal(t, ref) for t in toks.values())
+    for i in range(N):
+        alone = tsamp.sample(logits[i:i + 1], *(c[i:i + 1] for c in cols),
+                             mode=SEEN_BY[kind][0])
+        assert alone[0] == ref[i]
+    if kind == "greedy":
+        assert torch.equal(ref, torch.argmax(logits, dim=-1))
+    # the same rows beside one row of every kind, under "filtered"
+    others = [tsamp.SamplingParams(**kw) for kw in ROW_KINDS.values()]
+    mixed = [p] * N + others
+    assert tsamp.sample_mode(mixed) in ("filtered", SEEN_BY[kind][0])
+    big = torch.cat([logits, torch.randn((len(others), V)) * 2.5])
+    out = tsamp.sample(big, [q.temperature for q in mixed], [q.top_k for q in mixed],
+                       [q.top_p for q in mixed], [q.min_p for q in mixed],
+                       list(range(40, 40 + N)) + [1] * len(others),
+                       list(range(0, 3 * N, 3)) + [0] * len(others), mode="filtered")
+    assert torch.equal(out[:N], ref)
+
+
+@pytest.mark.parametrize("burst", [1, 4])
+def test_seeded_streams_resume_after_preemption(weights, burst):
+    """Seeded sampled requests in a pool too small for all of them: the
+    preempted ones resume their streams where they stopped (the draw's
+    counter is the tokens generated), per token and in bursts, as in an
+    ample pool."""
+    _, ct, _, pt = weights
+    prompts = _prompts(ct.vocab_size, lens=(20, 25, 30))
+    reqs = [(f"r{i}", p, tsamp.SamplingParams(temperature=0.9, top_k=30 * (i % 2),
+                                              seed=10 + i, max_tokens=40))
+            for i, p in enumerate(prompts)]
+
+    def run(n_pages):
+        engine = teng.NativeEngine(ct, tkv.CacheConfig(n_pages=n_pages, page_size=8,
+                                                       max_pages_per_seq=12),
+                                   max_batch_size=3, params=pt, device="cpu",
+                                   decode_burst_steps=burst)
+        return _tokens(_drive(engine, teng.Request, reqs)), engine
+
+    tight, engine = run(15)
+    assert engine.preemptions_total > 0
+    assert tight == run(40)[0]
+
+
 # -- the engine --------------------------------------------------------------------
 
 

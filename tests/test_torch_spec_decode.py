@@ -42,9 +42,6 @@ from fusioninfer_tpu_torch.engine import spec as tspec
 from fusioninfer_tpu_torch.engine.server import engine_from_args
 from fusioninfer_tpu_torch.models import config as tcfg
 
-# decode bursts are not ported: the JAX ledger pre-seeds its span-1
-# bucket, the port has none
-NOT_PORTED = ("burst_span_steps",)
 # the empirical marginal of N draws against the target distribution: the
 # JAX test's bound (4000 draws: one standard error is <= 0.008)
 MARGINAL_ATOL = 0.04
@@ -70,8 +67,7 @@ def weights():
 
 
 def _ledger(engine) -> dict:
-    snap = engine.sched.snapshot()
-    return {k: v for k, v in snap.items() if k not in NOT_PORTED}
+    return engine.sched.snapshot()
 
 
 # -- the proposer ------------------------------------------------------------------
@@ -160,10 +156,9 @@ def test_full_is_sample_at_the_same_counter():
                            cols["top_p"], cols["min_p"], seeds,
                            [c + j for c in counters])
         assert torch.equal(full[:, j], one), j
-    g0 = tsamp.row_generator(seeds[1], counters[1], "cpu")
-    g1 = tsamp.row_generator(seeds[1], counters[1], "cpu", stream=1)
-    assert float(torch.rand((), generator=g1)) == float(u[1, 0])
-    assert float(torch.rand((), generator=g0)) != float(u[1, 0])
+    key = torch.tensor([seeds[1]]), torch.tensor([counters[1]])
+    assert float(tsamp.uniforms(*key, 1, 1)[0, 0]) == float(u[1, 0])
+    assert float(tsamp.uniforms(*key, 0, 1)[0, 0]) != float(u[1, 0])
 
 
 # -- engine streams ----------------------------------------------------------------
