@@ -8,8 +8,14 @@ Phases, in order; any failure exits non-zero before the result line:
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: every CUDA kernel of ``fusioninfer_tpu_torch/csrc`` into
    ``build/kernels`` (one ``nvcc`` per source, in parallel);
-3. kernels against their plain PyTorch versions, on bf16 pages and on
-   int8 pages with scales, at the serve path's shapes: the row error
+3. the row-invariant GEMM (``ops.gemm``) at each qwen3-8b projection
+   shape and the RMSNorm (``ops.rms_norm``) at its three widths, at row
+   counts 1, 2, 8, 40, 64, 65, 520 and 3000: against ``x @ w`` and the
+   plain norm, every row's bits the same at every count and alone, kernel
+   ms (graph replays) against ``torch.matmul`` / ``F.rms_norm`` and the
+   bound; then the attention kernels against their plain PyTorch
+   versions, on bf16 pages and on int8 pages with scales, at the serve
+   path's shapes: the row error
    against a stated bound, kernel / plain / library
    (``scaled_dot_product_attention``, where it computes the same
    function) times by CUDA events, and the least time the card could
@@ -78,8 +84,9 @@ Phases, in order; any failure exits non-zero before the result line:
    forward must launch one walk per layer; drafts proposed and accepted,
    tokens per row and step, SSE decode tok/s per stream and a decode
    step's wall, thread-CPU and device ms are printed, then the same for
-   an engine without speculation on the same prompts, with the first
-   index at which the two greedy streams differ; on the first leg, a
+   an engine without speculation on the same prompts, whose greedy
+   streams must equal those with speculation token for token; on the
+   first leg, a
    request with ``logprobs: 3`` and a ``logit_bias``, and a seeded top-k
    stream that must be the same when served twice;
 9. decode bursts (``--decode-burst 8``, pipelined, CUDA graphs), with
@@ -88,17 +95,25 @@ Phases, in order; any failure exits non-zero before the result line:
    greedy and a seeded (temperature 0.8, top_k 40) request served alone,
    in a full batch of 8 and beside an 1800-token prompt chunked at the
    budget, on a burst engine, a per-token engine without the fused step
-   and one with it; the first two must serve each request the same
-   tokens in every case and the same as each other, and the fused-step
-   engine's first difference is printed; on the 4096 leg one burst's
+   and one with it; each must serve each request the same tokens in
+   every case, and all three the same as each other; on the 4096 leg one
+   burst's
    graph replay must equal eager ``decode_burst`` bit for bit; the wall,
    thread-CPU and device ms per token of each of 8 streams decoding in
    bursts (pipelined, and on the 4096 leg unpipelined) and per token, the
    graphs' capture seconds and pool bytes, and on the 4096 leg a
-   decode-only forward's device ms at 8 and 2 live rows; then ``engine
+   decode-only forward's device ms at 8 and 2 live rows through the GEMM
+   and norm kernels and through ``torch.matmul`` (A B B A); then ``engine
    serve`` with the CLI defaults through the server: a cold request's
    TTFT (it carries the captures), four SSE requests' TTFT and decode
-   tok/s per stream, the burst counters, and the greedy check.
+   tok/s per stream, the burst counters, and the greedy check;
+10. guided decoding through the server at 2048 on bf16 pages, a
+    ``--decode-burst 8`` engine: three unguided greedy streams alone,
+    then beside json_object and json_schema requests (greedy and
+    seeded); every guided request that stops must parse and conform to
+    its schema, the closed schema's requests must stop, and the unguided
+    streams must equal their alone streams; the guided rows' wall ms a
+    token and the guided host work a step are printed.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -309,6 +324,134 @@ def check_flash(gen, B: int, S: int) -> dict:
             "max_row_err": row_err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+# qwen3-8b's projections, (K, N) by weight: wq and wo, wk and wv, gate and
+# up share a shape
+GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "gate/up": (4096, 12288),
+               "down": (12288, 4096), "lm_head": (4096, 151936)}
+# row counts the serve path gives them: a decode row, live decode slots,
+# 8 slots, 8 spec windows of 5, one tile, one past it, a fused step, a
+# long prefill
+GEMM_ROWS = (1, 2, 8, 40, 64, 65, 520, 3000)
+# the GEMM accumulates in f32 and rounds once; the norm's statistics are f32
+GEMM_ROW_TOL = 2e-3
+NORM_ROW_TOL = 2e-3
+# qwen3-8b's norms, D by kind, with the rows per token: the layer and final
+# norms over d_model, the q and k norms over head_dim per head
+NORM_SHAPES = {"d_model": (4096, 1), "q_norm": (128, 32), "k_norm": (128, 8)}
+# neither kernel replaces a Pallas kernel: the JAX lines whose XLA ops they
+# take over (swiglu's gate product, rms_norm) stand in the "replaces" field
+JAX_DOT_LINE = 60
+JAX_NORM_LINE = 32
+
+
+def bit_rows(M: int, gen) -> list[int]:
+    """Rows whose M = 1 result anchors the row-invariance check: the first
+    eight, the edges of the 64-row tiles the row counts reach, the last,
+    and 16 drawn from the seed."""
+    import torch
+
+    rows = set(range(8)) | {39, 63, 64, 519, M - 1}
+    rows |= set(torch.randint(0, M, (16,), generator=gen, device="cuda").tolist())
+    return sorted(r for r in rows if r < M)
+
+
+def check_invariant(fn, x_all, gen, what: str) -> None:
+    """``fn(x)`` at every row count of GEMM_ROWS must give each row the
+    bits the largest count gives it, and the largest count each anchor
+    row's bits of a one-row call."""
+    import torch
+
+    full = fn(x_all)
+    for M in GEMM_ROWS[:-1]:
+        if not torch.equal(fn(x_all[:M]), full[:M]):
+            raise AssertionError(f"{what}: rows at M {M} differ from the same rows at "
+                                 f"M {x_all.shape[0]}")
+    for r in bit_rows(x_all.shape[0], gen):
+        if not torch.equal(fn(x_all[r: r + 1])[0], full[r]):
+            raise AssertionError(f"{what}: row {r} at M {x_all.shape[0]} differs from "
+                                 "the same row alone")
+
+
+def check_gemm(gen) -> dict:
+    """The GEMM kernel (``ops.gemm.matmul``) at each qwen3-8b projection
+    shape and every row count of GEMM_ROWS: against the plain ``x @ w``
+    (``check_close``, rows of N), row bits invariant across the row
+    counts, kernel ms (graph replays) against ``torch.matmul`` and the
+    bound, plain ms eager."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import gemm
+
+    out = {}
+    M_max = max(GEMM_ROWS)
+    for name, (K, N) in GEMM_SHAPES.items():
+        w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5).to(torch.bfloat16)
+        x_all = torch.randn((M_max, K), generator=gen, device="cuda").to(torch.bfloat16)
+        check_invariant(lambda x: gemm.matmul(x, w), x_all, gen, f"gemm {name}")
+        per_m = {}
+        for M in GEMM_ROWS:
+            x = x_all[:M]
+            y = gemm.matmul(x, w)
+            err, row_err = check_close(y, gemm.reference_matmul(x, w), f"gemm {name} M{M}",
+                                       GEMM_ROW_TOL, N)
+            reps = 5 if M * N * K > 1e12 else 20
+            ms = time_graph(lambda: gemm.matmul(x, w), reps=reps, per_graph=5)
+            lib_ms = time_graph(lambda: torch.matmul(x, w), reps=reps, per_graph=5)
+            plain_ms = time_events(lambda: gemm.reference_matmul(x, w), reps=reps)
+            bound_ms, bound_by = bound(2.0 * M * N * K, 2.0 * (M * K + K * N + M * N))
+            per_m[M] = {"max_abs_err": err, "max_row_err": row_err, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+        out[name] = {"K": K, "N": N, "splits": gemm.split_k(N, K), "rows": per_m}
+        log(f"  gemm {name} K{K} N{N} (splits {gemm.split_k(N, K)}): rows bit-identical at "
+            f"M {', '.join(map(str, GEMM_ROWS))} and alone; kernel / torch.matmul / bound "
+            "ms: " + "; ".join(f"M{M} {r['ms']:.4f} / {r['library_ms']:.4f} / "
+                               f"{r['bound_ms']:.4f}" for M, r in per_m.items()))
+        del w, x_all
+    return out
+
+
+def check_norm(gen) -> dict:
+    """The RMSNorm kernel at qwen3-8b's norm widths over the rows of every
+    token count of GEMM_ROWS: against the plain version, row bits
+    invariant across the counts, kernel ms against
+    ``torch.nn.functional.rms_norm`` (where this torch has it) and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from fusioninfer_tpu_torch.ops import rms_norm as rn
+
+    out = {}
+    eps = 1e-6
+    for name, (D, per_tok) in NORM_SHAPES.items():
+        w = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(torch.bfloat16)
+        x_all = torch.randn((max(GEMM_ROWS), per_tok, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        check_invariant(lambda x: rn.rms_norm(x, w, eps), x_all, gen, f"rms_norm {name}")
+        per_m = {}
+        for M in GEMM_ROWS:
+            x = x_all[:M]
+            y = rn.rms_norm(x, w, eps)
+            err, row_err = check_close(y, rn.reference_rms_norm(x, w, eps),
+                                       f"rms_norm {name} M{M}", NORM_ROW_TOL, D)
+            ms = time_graph(lambda: rn.rms_norm(x, w, eps))
+            plain_ms = time_events(lambda: rn.reference_rms_norm(x, w, eps))
+            lib_ms = None
+            if hasattr(F, "rms_norm"):
+                lib_ms = time_graph(lambda: F.rms_norm(x, (D,), w, eps))
+            bound_ms, bound_by = bound(4.0 * x.numel(), 2.0 * (2 * x.numel() + D))
+            per_m[M] = {"max_abs_err": err, "max_row_err": row_err, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+        out[name] = {"D": D, "rows_per_token": per_tok, "rows": per_m}
+        log(f"  rms_norm {name} D{D} x{per_tok} a token: rows bit-identical at every count "
+            "and alone; kernel / F.rms_norm / bound ms: " + "; ".join(
+                f"M{M} {r['ms']:.4f} / {r['library_ms']} / {r['bound_ms']:.4f}"
+                for M, r in per_m.items()))
+    return out
 
 
 def paged_pool(gen, rows, int8: bool, L: int = 2, mp: int = 32):
@@ -1200,36 +1343,49 @@ def drive_server(engine, prompts) -> list[dict]:
 
 
 def plain_forward(cfg, params, tokens, int8_from: int | None = None):
-    """Full-sequence causal forward → f32 logits, with the plain attention
-    (``reference_attention``) in place of the flash kernel and no pages:
-    no hand-written kernel runs in it.  With ``int8_from``, query rows from
-    that position on attend over K/V passed through ``kv_quantize`` and
-    back, as an engine with int8 pages decodes them (its prefill rows
-    attend over the exact K/V)."""
+    """Full-sequence causal forward → f32 logits, with the plain versions
+    in place of every kernel (``reference_attention`` for flash, ``x @ w``
+    for the GEMM, the plain RMSNorm) and no pages: no hand-written kernel
+    runs in it.  With ``int8_from``, query rows from that position on
+    attend over K/V passed through ``kv_quantize`` and back, as an engine
+    with int8 pages decodes them (its prefill rows attend over the exact
+    K/V)."""
     import torch
+    import torch.nn.functional as F
 
     from fusioninfer_tpu_torch.models import transformer as tf
     from fusioninfer_tpu_torch.models.quantization import kv_quantize
     from fusioninfer_tpu_torch.ops.flash_attention import reference_attention
+    from fusioninfer_tpu_torch.ops.gemm import reference_matmul as mm
+    from fusioninfer_tpu_torch.ops.rms_norm import reference_rms_norm as norm
 
     def dequant(x):
         x8, scale = kv_quantize(x)
         return x8.float() * scale[..., None]
 
+    B, S = tokens.shape
+    H, KV, Hd, eps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.rms_eps
     x = tf.embed_lookup(params["embed"], tokens)
-    rope = tf.rope_tables(torch.arange(tokens.shape[1], device=tokens.device),
-                          cfg.head_dim, cfg.rope_theta)
+    rope = tf.rope_tables(torch.arange(S, device=tokens.device), Hd, cfg.rope_theta)
     for l in range(cfg.n_layers):
         layer = tf.layer_params(params, l)
-        q, k, v = tf.qkv_proj(cfg, layer, x, rope)
+        h = norm(x, layer["attn_norm"], eps)
+        q = mm(h, layer["wq"]).reshape(B, S, H, Hd)
+        k = mm(h, layer["wk"]).reshape(B, S, KV, Hd)
+        v = mm(h, layer["wv"]).reshape(B, S, KV, Hd)
+        if cfg.qk_norm:
+            q, k = norm(q, layer["q_norm"], eps), norm(k, layer["k_norm"], eps)
+        q, k = tf.rotate(q, rope), tf.rotate(k, rope)
         attn = reference_attention(q, k, v, causal=True, window=cfg.sliding_window)
         if int8_from is not None:
             attn8 = reference_attention(q, dequant(k), dequant(v), causal=True,
                                         window=cfg.sliding_window)
             attn = torch.cat([attn[:, :int8_from], attn8[:, int8_from:]], dim=1)
-        x = x + attn @ layer["wo"]
-        x = x + tf.mlp_block(cfg, layer, x)
-    return tf.lm_head(cfg, params, tf.rms_norm(x, params["final_norm"], cfg.rms_eps))
+        x = x + mm(attn, layer["wo"])
+        h = norm(x, layer["mlp_norm"], eps)
+        x = x + mm(F.silu(mm(h, layer["w_gate"])) * mm(h, layer["w_up"]), layer["w_down"])
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return mm(norm(x, params["final_norm"], eps), head).float()
 
 
 def check_greedy(engine, results, paged_prompt: bool = False) -> float:
@@ -1287,6 +1443,27 @@ def warm_up(engine, prompts) -> None:
         engine.step()
 
 
+def walk_launches(before: dict, n_steps: int) -> dict:
+    """Page-walk launches a step since ``before`` (``dispatch.launches()``),
+    by counter name: the wrappers' exact counts.  A profile's kernel events
+    name the kernels that ran, but CUPTI can drop an event, so the launch
+    count comes from here."""
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    return {k: (v - before[k]) / n_steps for k, v in dispatch.launches().items()
+            if k.startswith("ragged_paged_attention") and v > before[k]}
+
+
+def check_one_walk_per_layer(prof: dict, n_layers: int, what: str = "decode step") -> None:
+    """A step launches one page-walk kernel per layer (the wrappers'
+    counts, :func:`walk_launches`) and the profile shows one walk kernel
+    and nothing else of the walk (no second, combining kernel)."""
+    launched, seen = prof["walk_launches_per_step"], prof["walk_kernels_per_step"]
+    if list(launched.values()) != [n_layers] or len(seen) != 1:
+        raise AssertionError(f"{what}: page-walk launches {launched}, kernels {seen}; "
+                             f"expected one kernel launched {n_layers} times per step")
+
+
 def profile_decode(engine, n_steps: int = 8, sampling: dict | None = None,
                    device: bool = True) -> dict:
     """Eight requests (prompts of 100…1500 byte-tokens) decoding together
@@ -1303,6 +1480,7 @@ def profile_decode(engine, n_steps: int = 8, sampling: dict | None = None,
 
     from fusioninfer_tpu_torch.engine.engine import Request
     from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+    from fusioninfer_tpu_torch.ops import dispatch
 
     lens = [100, 300, 500, 700, 900, 1100, 1300, 1500]
     for i, n in enumerate(lens):
@@ -1328,10 +1506,12 @@ def profile_decode(engine, n_steps: int = 8, sampling: dict | None = None,
         while engine.has_work():
             engine.step()
         return {"batch": len(lens), "wall_ms_per_step": wall_ms, "cpu_ms_per_step": cpu_ms}
+    counts0 = dispatch.launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             engine.step()
         torch.cuda.synchronize()
+    walk_counts = walk_launches(counts0, n_steps)
     while engine.has_work():
         engine.step()
 
@@ -1351,17 +1531,9 @@ def profile_decode(engine, n_steps: int = 8, sampling: dict | None = None,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "walk_ms_per_step": sum(dev_us(e) for e in walks) / 1e3 / n_steps,
             "walk_kernels_per_step": {e.key[:80]: e.count / n_steps for e in walks},
+            "walk_launches_per_step": walk_counts,
             "top_kernels_ms_per_step": {e.key[:80]: dev_us(e) / 1e3 / n_steps
                                         for e in top}}
-
-
-def check_one_walk_per_layer(prof: dict, n_layers: int) -> None:
-    """A decode step of the split walk launches one page-walk kernel per
-    layer and nothing else of the walk (no second, combining kernel)."""
-    launched = prof["walk_kernels_per_step"]
-    if list(launched.values()) != [n_layers]:
-        raise AssertionError(f"decode step: page-walk kernels {launched}, expected one "
-                             f"kernel launched {n_layers} times per step")
 
 
 def serve_leg(engine, prompts, must_launch: tuple[str, ...]) -> dict:
@@ -1421,6 +1593,7 @@ def profile_fused(engine, long_len: int, n_steps: int = 3) -> dict:
 
     from fusioninfer_tpu_torch.engine.engine import Request
     from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+    from fusioninfer_tpu_torch.ops import dispatch
 
     def params(n):
         return SamplingParams(temperature=0.0, max_tokens=n)
@@ -1447,10 +1620,12 @@ def profile_fused(engine, long_len: int, n_steps: int = 3) -> dict:
             torch.cuda.synchronize()
             out["wall_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n_steps
         else:
+            counts0 = dispatch.launches()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(n_steps):
                     engine.step()
                 torch.cuda.synchronize()
+            out["walk_launches_per_step"] = walk_launches(counts0, n_steps)
         if engine.sched.fused_steps_total - before != n_steps:
             raise AssertionError(f"{n_steps} mixed steps ran "
                                  f"{engine.sched.fused_steps_total - before} fused forwards")
@@ -1576,6 +1751,14 @@ def serve_prefix_leg(engine, long_len: int, card: str) -> dict:
     if walk != engine.cfg.n_layers * ragged_fwd:
         raise AssertionError(f"prefix leg: {walk} walk launches for {ragged_fwd} ragged "
                              f"forwards of {engine.cfg.n_layers} layers")
+    # every forward's norms (layer, q/k and final) and its seven projections
+    # a layer went through the kernels
+    L, forwards = engine.cfg.n_layers, delta["weight_passes"]
+    norms = (2 + 2 * engine.cfg.qk_norm) * L + 1
+    if (launches["rms_norm"] != norms * forwards
+            or launches["gemm"] < 7 * L * forwards):
+        raise AssertionError(f"prefix leg: {launches['rms_norm']} norm and "
+                             f"{launches['gemm']} GEMM launches for {forwards} forwards")
     gap = check_greedy(engine, [results[k] for k in order], paged_prompt=True)
     tok = ByteTokenizer()
     ttft = {k: results[k]["ttft_s"] for k in order}
@@ -1588,9 +1771,7 @@ def serve_prefix_leg(engine, long_len: int, card: str) -> dict:
         f"{delta['chunks']} chunks; {delta['fused_steps']} fused steps; {int(ragged_fwd)} "
         f"ragged forwards, {walk} walk launches; launches {launches}; greedy gap {gap:.4f}")
     prof = profile_fused(engine, 2000)
-    if list(prof["walk_kernels_per_step"].values()) != [engine.cfg.n_layers]:
-        raise AssertionError(f"fused step: walk kernels {prof['walk_kernels_per_step']}, "
-                             f"expected one kernel launched {engine.cfg.n_layers} times")
+    check_one_walk_per_layer(prof, engine.cfg.n_layers, "fused step")
     log(f"  fused step (4 decode rows + a chunk, {prof['packed_tokens_per_step_wall']:.0f} "
         f"tokens packed a step): {prof['wall_ms_per_step']:.3f} ms wall, "
         f"{prof['device_ms_per_step']:.3f} ms on the device (busy share "
@@ -1734,6 +1915,7 @@ def profile_spec(engine, prompts, n_steps: int = 8) -> dict:
     from fusioninfer_tpu_torch.engine.engine import Request
     from fusioninfer_tpu_torch.engine.sampler import SamplingParams
     from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
+    from fusioninfer_tpu_torch.ops import dispatch
 
     tok = ByteTokenizer()
     rids = [f"spec-prof{i}" for i in range(len(prompts))]
@@ -1756,10 +1938,12 @@ def profile_spec(engine, prompts, n_steps: int = 8) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     cpu_ms = (time.thread_time() - c0) * 1e3 / n_steps
+    counts0 = dispatch.launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             engine.step()
         torch.cuda.synchronize()
+    walk_counts = walk_launches(counts0, n_steps)
     if engine.num_running != len(prompts):
         raise AssertionError("spec profile: a row finished inside the profile")
     for rid in rids:
@@ -1784,6 +1968,7 @@ def profile_spec(engine, prompts, n_steps: int = 8) -> dict:
             "spec_accepted": engine.spec_accepted_total - spec0[1],
             "walk_ms_per_step": sum(dev_us(e) for e in walks) / 1e3 / n_steps,
             "walk_kernels_per_step": {e.key[:80]: e.count / n_steps for e in walks},
+            "walk_launches_per_step": walk_counts,
             "top_kernels_ms_per_step": {e.key[:80]: dev_us(e) / 1e3 / n_steps
                                         for e in top}}
 
@@ -1882,16 +2067,16 @@ def serve_spec_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
             f"{p['tokens_per_row_step']:.3f} tokens per row and step (drafts "
             f"{p['spec_proposed']} proposed, {p['spec_accepted']} accepted); walk "
             f"{p['walk_ms_per_step']:.4f} ms/step, launches {p['walk_kernels_per_step']}")
-        if list(p["walk_kernels_per_step"].values()) != [engine.cfg.n_layers]:
-            raise AssertionError(f"{tag}: walk kernels {p['walk_kernels_per_step']}, "
-                                 f"expected one kernel launched {engine.cfg.n_layers} "
-                                 "times a step")
+        check_one_walk_per_layer(p, engine.cfg.n_layers, f"{tag} step")
         del engine
         torch.cuda.empty_cache()
     on, off = out["on"]["greedy"]["token_ids"], out["off"]["greedy"]["token_ids"]
     out["first_difference"] = [first_difference(a, b) for a, b in zip(on, off)]
-    log(f"  {tag}: first index at which the greedy streams with speculation on and off "
-        f"differ, per request: {out['first_difference']}")
+    if any(d is not None for d in out["first_difference"]):
+        raise AssertionError(f"{tag}: greedy streams with speculation on and off differ "
+                             f"at {out['first_difference']} (per request)")
+    log(f"  {tag}: the {len(on)} greedy streams with speculation on equal those with it "
+        "off, token for token")
     if extras:
         ex = out["off"]["extras"]
         log(f"  logprobs 3 + logit_bias request: token_logprobs "
@@ -1904,6 +2089,10 @@ def serve_spec_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
 # -- phase 9: decode bursts -----------------------------------------------------
 
 BURST = 8
+# the A/B of a forward through the GEMM and norm kernels against cuBLAS
+# (:func:`gemm_cost`): a fused step's chunk and a flash prefill's prompt
+CHUNK_AB = 512
+PREFILL_AB = 1024
 # the batch-independence check: a greedy and a seeded request, each served
 # alone, in a full batch of 8 and beside a long prompt chunked at the
 # phase's token budget
@@ -1978,15 +2167,15 @@ def serve_a1_case(engine, case: str) -> tuple[dict, int]:
     return out, beside
 
 
-def profile_stepping(engine, n_tokens: int = 32, fixed_m: bool = False) -> dict:
+def profile_stepping(engine, n_tokens: int = 32, gemm_ab: bool = False) -> dict:
     """Eight greedy requests (prompts of 100…1500 tokens) decoding
     together, once the batch runs and its graphs exist: wall ms and the
     stepping thread's CPU ms per token of each stream (one batch step
     per token) over ``n_tokens`` tokens a stream, then over as many more
     under ``torch.profiler`` (device activity only) the device ms per
     token (the kernels' time, graph replays' kernels included) and the
-    busy share, device ms / wall ms; with ``fixed_m``, then
-    :func:`fixed_m_cost` from the same batch."""
+    busy share, device ms / wall ms; with ``gemm_ab``, then
+    :func:`gemm_cost` from the same batch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2022,7 +2211,7 @@ def profile_stepping(engine, n_tokens: int = 32, fixed_m: bool = False) -> dict:
         per_stream2 = window()
     if engine.num_running != len(lens):
         raise AssertionError(f"burst profile: {engine.num_running} rows running")
-    fixed_m = fixed_m_cost(engine) if fixed_m else None
+    gemm_ab = gemm_cost(engine) if gemm_ab else None
     for rid in rids:
         engine.cancel(rid)
     while engine.has_work():
@@ -2042,39 +2231,78 @@ def profile_stepping(engine, n_tokens: int = 32, fixed_m: bool = False) -> dict:
             "device_ms_per_token": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "walk_launches_per_token": {e.key[:60]: e.count / per_stream2 for e in walks},
-            "fixed_m": fixed_m}
+            "gemm_ab": gemm_ab}
 
 
-def fixed_m_cost(engine) -> dict:
-    """The device ms of one decode-only forward (:func:`time_graph`: two
-    forwards a graph, the median of five replays) from the running
-    batch's state: 8 live rows at M 8, and 2 live rows at M 2 (the row
-    count before this slice) and at M 8 (the engine's fixed ``B·W``)."""
+def gemm_cost(engine) -> dict:
+    """The device ms of one forward (:func:`time_graph`: two forwards a
+    graph, the median of five replays, A B B A): a decode-only forward
+    from the running batch's state at 8 and at 2 live rows, a fused step
+    of 4 of those rows beside a ``CHUNK_AB``-token chunk, and a flash
+    prefill of one ``PREFILL_AB``-token prompt (the chunk and the prompt
+    write the trash page); each through the port's GEMM and RMSNorm
+    kernels, and with its projections through ``torch.matmul`` (cuBLAS)
+    and its norms through the plain version, the yardstick (swapped in
+    here for the timing only; the port never calls them on the card)."""
     import numpy as np
+    import torch
 
+    from fusioninfer_tpu_torch.engine import model_runner as mr
     from fusioninfer_tpu_torch.engine.fused import pack_ragged_batch
-    from fusioninfer_tpu_torch.engine.model_runner import fused_step
+    from fusioninfer_tpu_torch.models import transformer as tf
+    from fusioninfer_tpu_torch.ops import rms_norm as rn
 
     live = engine._live()
-    B = engine.max_batch_size
+    cc = engine.cache_cfg
+    trash = np.full((cc.max_pages_per_seq,), cc.trash_page, np.int32)
 
-    def forward_ms(slots, n_tokens):
+    def forward_ms(slots, chunk=0):
         window, counts, positions, tables = engine._decode_window(
             {s: live[s] for s in slots}, {})
+        chunks = [([3 + j % 250 for j in range(chunk)], 0, trash, 0)] if chunk else []
         packed = pack_ragged_batch(window, counts, positions, tables, np.zeros_like(counts),
-                                   [], engine.cache_cfg.trash_page,
-                                   rows=engine._ragged_rows, chunk_rows=0, min_tokens=B)
+                                   chunks, cc.trash_page, rows=engine._ragged_rows,
+                                   chunk_rows=engine._ragged_chunk_rows if chunk else 0)
         arrays = engine._upload_int32((packed.tokens, packed.row_starts, packed.q_begins,
                                        packed.q_lens, packed.page_tables, packed.sel,
                                        packed.chunk_sel))
-        return time_graph(lambda: fused_step(
+        return time_graph(lambda: mr.fused_step(
             engine.cfg, engine.cache_cfg, engine.params, engine.cache, *arrays,
-            kv_splits=engine.kv_splits, cluster=engine.walk_cluster, n_tokens=n_tokens,
-            n_walk=packed.packed_tokens), reps=5, per_graph=2)
+            kv_splits=engine.kv_splits, cluster=engine.walk_cluster,
+            n_tokens=packed.packed_tokens), reps=5, per_graph=2)
+
+    def prefill_ms():
+        dev = engine.device
+        tokens = torch.tensor([[3 + j % 250 for j in range(PREFILL_AB)]], device=dev)
+        lens = torch.tensor([PREFILL_AB], device=dev)
+        rows = torch.tensor(trash[None].astype(np.int64), device=dev)
+        return time_graph(lambda: mr.prefill(engine.cfg, cc, engine.params, engine.cache,
+                                             tokens, lens, rows), reps=5, per_graph=2)
+
+    routed = [(mod, name, getattr(mod, name)) for mod in (tf, mr)
+              for name in ("matmul", "rms_norm")]
+    yardstick = {"matmul": torch.matmul, "rms_norm": rn.reference_rms_norm}
+
+    def library(on: bool):
+        for mod, name, fn in routed:
+            setattr(mod, name, yardstick[name] if on else fn)
 
     slots = sorted(live)
-    return {"live8_m8": forward_ms(slots, B), "live2_m2": forward_ms(slots[:2], 2),
-            "live2_m8": forward_ms(slots[:2], B)}
+    cases = {"live8": lambda: forward_ms(slots[:8]), "live2": lambda: forward_ms(slots[:2]),
+             f"fused4_chunk{CHUNK_AB}": lambda: forward_ms(slots[:4], CHUNK_AB),
+             f"prefill{PREFILL_AB}": prefill_ms}
+    out = {}
+    for name, fn in cases.items():
+        runs = []
+        for lib in (False, True, True, False):
+            library(lib)
+            try:
+                runs.append(fn())
+            finally:
+                library(False)
+        out[f"{name}_kernels"] = (runs[0] + runs[3]) / 2
+        out[f"{name}_cublas"] = (runs[1] + runs[2]) / 2
+    return out
 
 
 def check_graph_eager(engine) -> dict:
@@ -2144,13 +2372,12 @@ def serve_burst_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
     """Phase 9, one page configuration: the batch-independence check
     (:func:`serve_a1_case`, every case) on a ``--decode-burst 8``
     pipelined engine, a per-token engine without the fused step and a
-    per-token engine with it; the first two must give the same tokens in
-    every case, and the same as each other (burst = per-token, on the
-    card); the fused engine's first difference beside the chunk is
-    printed.  Then the steady-state profiles of the burst engine
-    pipelined and of the per-token engine; with ``extras`` also the
-    graph-against-eager check, the burst engine's unpipelined profile
-    and the fixed-M cost.  ``make_engine(kind)`` builds the leg's
+    per-token engine with it; each must give the same tokens in every
+    case, and all three the same as each other (on the card).  Then the
+    steady-state profiles of the burst engine pipelined and of the
+    per-token engine; with ``extras`` also the graph-against-eager
+    check, the burst engine's unpipelined profile and the decode
+    forward's device ms through the kernels and through cuBLAS.  ``make_engine(kind)`` builds the leg's
     engines."""
     import torch
 
@@ -2187,31 +2414,25 @@ def serve_burst_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
                 out["profile_unpipelined"] = profile_stepping(engine)
             out["captures"] = [dict(vars(c)) for c in engine.bursts.captures]
         elif kind == "split":
-            out["profile_per_token"] = profile_stepping(engine, n_tokens=16, fixed_m=extras)
+            out["profile_per_token"] = profile_stepping(engine, n_tokens=16, gemm_ab=extras)
         del engine
         torch.cuda.empty_cache()
         log(f"  {tag}, {kind}: engine done in {time.perf_counter() - t0:.1f} s")
     streams = out["streams"]
-    for kind in ("burst", "split"):
+    for kind in ("burst", "split", "fused"):
         for case in A1_CASES[1:]:
             if streams[kind][case] != streams[kind]["alone"]:
                 diff = {rid: first_difference(streams[kind]["alone"][rid], toks)
                         for rid, toks in streams[kind][case].items()}
                 raise AssertionError(f"{tag} {kind}: case {case} parts from alone at {diff}")
-    if streams["burst"]["alone"] != streams["split"]["alone"]:
-        diff = {rid: first_difference(streams["split"]["alone"][rid], toks)
-                for rid, toks in streams["burst"]["alone"].items()}
-        raise AssertionError(f"{tag}: burst streams part from per-token streams at {diff}")
-    out["fused_first_difference"] = {
-        case: {rid: first_difference(streams["fused"]["alone"][rid], toks)
-               for rid, toks in streams["fused"][case].items()} for case in A1_CASES[1:]}
-    out["fused_vs_split"] = {rid: first_difference(streams["split"]["alone"][rid], toks)
-                             for rid, toks in streams["fused"]["alone"].items()}
+        if streams[kind]["alone"] != streams["split"]["alone"]:
+            diff = {rid: first_difference(streams["split"]["alone"][rid], toks)
+                    for rid, toks in streams[kind]["alone"].items()}
+            raise AssertionError(f"{tag}: {kind} streams part from per-token streams at "
+                                 f"{diff}")
     log(f"  {tag}: greedy and seeded streams the same alone, in a batch of 8 and beside "
-        f"a {A1_LONG}-token chunked prompt, on the burst and the per-token (no fused step) "
-        f"engines, and the same on both; fused-step engine, first difference from its "
-        f"own alone stream {out['fused_first_difference']}, alone against per-token "
-        f"{out['fused_vs_split']}")
+        f"a {A1_LONG}-token chunked prompt, on the burst, the per-token and the fused-step "
+        f"engines, and the same on all three")
     if extras:
         ge = out["graph_eager"]
         log(f"  {tag}: graph replay = eager decode_burst bit for bit ({ge['rows']} rows, "
@@ -2228,10 +2449,15 @@ def serve_burst_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
             f"{p['device_ms_per_token']:.3f} ms device, busy "
             f"{p['device_busy_share'] if p['device_busy_share'] is None else round(p['device_busy_share'], 4)} "
             f"on {card}")
-    fm = out["profile_per_token"]["fixed_m"]
-    if fm:
-        log(f"  {tag}: decode-only forward, device ms: 8 live at M 8 {fm['live8_m8']:.3f}; "
-            f"2 live at M 2 {fm['live2_m2']:.3f}, at M 8 {fm['live2_m8']:.3f}")
+    ab = out["profile_per_token"]["gemm_ab"]
+    if ab:
+        log(f"  {tag}: decode-only forward, device ms (A B B A) on {card}: 8 live rows "
+            f"{ab['live8_kernels']:.3f} through the GEMM and norm kernels, "
+            f"{ab['live8_cublas']:.3f} through torch.matmul and the plain norm; 2 live rows "
+            f"{ab['live2_kernels']:.3f} / {ab['live2_cublas']:.3f}; 4 rows beside a "
+            f"{CHUNK_AB}-token chunk {ab[f'fused4_chunk{CHUNK_AB}_kernels']:.3f} / "
+            f"{ab[f'fused4_chunk{CHUNK_AB}_cublas']:.3f}; flash prefill of {PREFILL_AB} tokens "
+            f"{ab[f'prefill{PREFILL_AB}_kernels']:.3f} / {ab[f'prefill{PREFILL_AB}_cublas']:.3f}")
     return out
 
 
@@ -2315,6 +2541,148 @@ def serve_burst_defaults(params, card: str) -> dict:
     return out
 
 
+# -- phase 10: guided decoding ---------------------------------------------------
+
+GUIDED_TOKENS = 48
+# json_schema requests: a closed object whose walk the grammar forces to
+# a close (every request of it must stop), and one with an unbounded
+# integer (may run to its length)
+GUIDED_SCHEMAS = {
+    "flag": {"type": "object", "properties": {"ok": {"type": "boolean"}},
+             "required": ["ok"], "additionalProperties": False},
+    "pet": {"type": "object",
+            "properties": {"kind": {"enum": ["cat", "dog"]}, "age": {"type": "integer"},
+                           "tags": {"type": "array", "items": {"enum": ["a", "b"]},
+                                    "maxItems": 2}},
+            "required": ["kind", "age"], "additionalProperties": False},
+}
+GUIDED_PLAIN = ("Unguided stream one decoding in bursts beside guided rows.",
+                "Unguided stream two, also bursting, next to json rows.",
+                "A third unguided stream, the last of the bursting rows.")
+
+
+def conforms(name: str, doc) -> bool:
+    """``doc`` (parsed JSON) satisfies ``GUIDED_SCHEMAS[name]``, checked by
+    hand, independently of the grammar that produced it."""
+    if not isinstance(doc, dict):
+        return False
+    if name == "flag":
+        return set(doc) == {"ok"} and isinstance(doc["ok"], bool)
+    tags_ok = "tags" not in doc or (isinstance(doc["tags"], list) and len(doc["tags"]) <= 2
+                                    and all(t in ("a", "b") for t in doc["tags"]))
+    return (set(doc) <= {"kind", "age", "tags"} and doc.get("kind") in ("cat", "dog")
+            and type(doc.get("age")) is int and tags_ok)
+
+
+def serve_guided_leg(engine, card: str) -> dict:
+    """Phase 10 on a ``--decode-burst 8`` engine through the server: three
+    unguided greedy streams served alone, then again beside json_object
+    and json_schema requests, greedy and seeded (the guided rows step once
+    a pass while the unguided ones burst).  Every guided request that
+    finishes with ``stop`` must parse and conform, every ``flag`` request
+    must stop, and each unguided stream must equal its alone stream.  The
+    guided rows' wall ms a token (SSE stamps) and the guided host work a
+    step (masks, uploads and machine advances) are printed."""
+    from fusioninfer_tpu_torch.engine.server import EngineServer
+    from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    tok = ByteTokenizer()
+    server = EngineServer(engine, host="127.0.0.1", port=0)
+    if not engine.guided_enabled:
+        raise AssertionError("the server installed no guided vocab")
+    host = {"s": 0.0, "calls": 0}
+    for name in ("_guided_legal", "_guided_advance"):
+        fn = getattr(engine, name)
+
+        def timed(*a, _fn=fn):
+            t = time.perf_counter()
+            try:
+                return _fn(*a)
+            finally:
+                host["s"] += time.perf_counter() - t
+                host["calls"] += 1
+
+        setattr(engine, name, timed)
+    guided = {}
+    for mode, sampling in (("greedy", {"temperature": 0.0}),
+                           ("seeded", {"temperature": 0.8, "top_k": 40, "seed": 5})):
+        guided[f"object_{mode}"] = {**sampling, "response_format": {"type": "json_object"}}
+        for name, schema in GUIDED_SCHEMAS.items():
+            guided[f"{name}_{mode}"] = {**sampling, "response_format": {
+                "type": "json_schema", "json_schema": {"name": name, "schema": schema}}}
+    results, errors = {}, []
+
+    def send(label, body):
+        def one():
+            try:
+                results[label] = _post(server.port, {"max_tokens": GUIDED_TOKENS,
+                                                     "stream": True, **body}, stream=True)
+            except Exception as e:  # noqa: BLE001 - collected and re-raised below
+                errors.append(f"{label}: {e!r}")
+        t = threading.Thread(target=one)
+        t.start()
+        return t
+
+    server.start()
+    try:
+        for i, text in enumerate(GUIDED_PLAIN):
+            send(f"alone{i}", {"prompt": text, "temperature": 0.0}).join(600)
+        steps0, host0 = engine.sched.steps_total, dict(host)
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        threads = [send(f"beside{i}", {"prompt": text, "temperature": 0.0})
+                   for i, text in enumerate(GUIDED_PLAIN)]
+        threads += [send(label, {"prompt": f"Answer in JSON ({label}):", **body})
+                    for label, body in guided.items()]
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"guided leg: {errors or 'a request did not finish'}")
+    launches = dispatch.launches()
+    steps = engine.sched.steps_total - steps0
+    for i in range(len(GUIDED_PLAIN)):
+        a, b = results[f"alone{i}"]["token_ids"], results[f"beside{i}"]["token_ids"]
+        if a != b:
+            raise AssertionError(f"guided leg: unguided stream {i} beside the guided rows "
+                                 f"parts from its alone stream at {first_difference(a, b)}")
+    outcomes = {}
+    for label in guided:
+        r = results[label]
+        text = tok.decode(r["token_ids"])
+        outcomes[label] = {"finish": r["finish"], "tokens": r["tokens"], "text": text,
+                           "ms_per_token": 1e3 / r["decode_tok_s"] if r["decode_tok_s"]
+                           else None}
+        if r["finish"] == "stop":
+            doc = json.loads(text)
+            name = label.rsplit("_", 1)[0]
+            if not isinstance(doc, dict) or (name in GUIDED_SCHEMAS
+                                             and not conforms(name, doc)):
+                raise AssertionError(f"guided leg: {label} stopped with {text!r}")
+        elif r["finish"] != "length" or r["tokens"] != GUIDED_TOKENS:
+            raise AssertionError(f"guided leg: {label} ended {r['finish']!r} after "
+                                 f"{r['tokens']} tokens")
+    if any(outcomes[f"flag_{m}"]["finish"] != "stop" for m in ("greedy", "seeded")):
+        raise AssertionError("guided leg: a closed-schema request did not stop")
+    if engine.sched.burst_span_steps[BURST] == 0:
+        raise AssertionError("guided leg: the unguided rows never burst")
+    host_ms = (host["s"] - host0["s"]) * 1e3 / max(steps, 1)
+    ms_tok = [o["ms_per_token"] for o in outcomes.values() if o["ms_per_token"]]
+    log(f"  guided leg in {wall:.2f} s, {steps} engine steps: "
+        + "; ".join(f"{k} {v['finish']} {v['tokens']} tok {v['text'][:40]!r}"
+                    for k, v in outcomes.items()))
+    log(f"  guided rows' wall ms a token {[round(x, 2) for x in ms_tok]} on {card}; guided "
+        f"host work (masks, uploads, machine advances) {host_ms:.3f} ms a step; the "
+        f"{len(GUIDED_PLAIN)} unguided streams beside them equal their alone streams; "
+        f"launches {launches}")
+    return {"wall_s": wall, "steps": steps, "outcomes": outcomes, "launches": launches,
+            "guided_ms_per_token": ms_tok, "guided_host_ms_per_step": host_ms,
+            "sched": engine.sched.snapshot()}
+
+
 def kernel_row(name: str, source: str, replaces: int, launches: int, res: dict) -> dict:
     return {"name": name, "route": "cuda", "source": f"fusioninfer_tpu_torch/csrc/{source}",
             "replaces": f"fusioninfer_tpu/ops/{replaces}", "launches": launches,
@@ -2340,20 +2708,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/10] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    log(f"[1/11] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     _build.build_all()
-    log(f"[2/10] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
+    log(f"[2/11] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log(f"[3/10] kernels against their plain versions (bf16 and int8 pages, |err| <= "
+    log(f"[3/11] kernels against their plain versions (bf16 and int8 pages, |err| <= "
         f"{RTOL}·|ref| + row_tol·rms(row), row_tol {FLASH_ROW_TOL} flash / {PAGED_ROW_TOL} "
         f"page walks and decode / {WINDOW_ROW_TOL} prefill and verify; times: median "
         f"CUDA-event ms on {card})")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    log(f"  the row-invariant GEMM and RMSNorm (|err| <= {RTOL}·|ref| + "
+        f"{GEMM_ROW_TOL}·rms(row) against x @ w and the plain norm; rows of N or D)")
+    norms = check_norm(gen)
+    gemms = check_gemm(gen)
     cases = primitive_cases(gen)
     launches_b = drive_primitives(cases)
     log(f"  primitives through their entry points: launches {launches_b}")
@@ -2420,7 +2792,7 @@ def main() -> int:
     del cases
     torch.cuda.empty_cache()
 
-    log("[4/10] serve qwen3-8b at full width, max-model-len 4096")
+    log("[4/11] serve qwen3-8b at full width, max-model-len 4096")
     cfg = get_preset("qwen3-8b")
     t0 = time.perf_counter()
     # phases 4-6 serve as the earlier slices did: no prefix cache, no token
@@ -2434,7 +2806,8 @@ def main() -> int:
         f"(kv_splits {engine.kv_splits}, {engine.cache_cfg.n_pages} pages)")
     prompts = [("The quick brown fox jumps over the lazy dog. " * 40)[:n]
                for n in N_REQUESTS_PROMPTS]
-    serve4 = serve_leg(engine, prompts, ("flash_attention", "ragged_paged_attention_kvsplit"))
+    serve4 = serve_leg(engine, prompts, ("flash_attention", "ragged_paged_attention_kvsplit",
+                                         "gemm", "rms_norm"))
     prof4 = profile_decode(engine)
     log_profile(prof4, card)
     check_one_walk_per_layer(prof4, cfg.n_layers)
@@ -2442,21 +2815,22 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[5/10] single page walk: same weights, max-model-len 2048")
+    log("[5/11] single page walk: same weights, max-model-len 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda",
                                                  prefix_caching=False),
                           max_batch_size=8, params=params, device="cuda", **legacy)
     if engine.kv_splits != 0:
         raise AssertionError(f"expected the single walk at 2048, got kv_splits {engine.kv_splits}")
     prompts5 = prompts[:2] + [prompts[2][:600], prompts[3][:1000]]
-    serve5 = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention"))
+    serve5 = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention",
+                                          "gemm", "rms_norm"))
     prof5 = profile_decode(engine)
     log_profile(prof5, card)
     check_one_walk_per_layer(prof5, cfg.n_layers)
     del engine
     torch.cuda.empty_cache()
 
-    log("[6/10] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
+    log("[6/11] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
         "then 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda", "int8",
                                                  prefix_caching=False),
@@ -2464,7 +2838,8 @@ def main() -> int:
     if engine.kv_splits == 0 or engine.cache["k"].dtype != torch.int8:
         raise AssertionError("expected int8 pages and the split walk at 4096")
     serve6 = serve_leg(engine, prompts, ("flash_attention",
-                                         "ragged_paged_attention_kvsplit_int8"))
+                                         "ragged_paged_attention_kvsplit_int8", "gemm",
+                                         "rms_norm"))
     prof6 = profile_decode(engine)
     log_profile(prof6, card)
     check_one_walk_per_layer(prof6, cfg.n_layers)
@@ -2473,11 +2848,12 @@ def main() -> int:
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda", "int8",
                                                  prefix_caching=False),
                           max_batch_size=8, params=params, device="cuda", **legacy)
-    serve6s = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention_int8"))
+    serve6s = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention_int8",
+                                           "gemm", "rms_norm"))
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[7/10] prefix caching, chunked prefill and fused steps (the serve defaults, "
+    log(f"[7/11] prefix caching, chunked prefill and fused steps (the serve defaults, "
         f"--tokens-per-step {TOKENS_PER_STEP}): same weights, bf16 pages at 4096 (split "
         "walk) and 2048 (single walk), int8 pages at 2048")
     serve7 = {}
@@ -2495,7 +2871,7 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
-    log(f"[8/10] speculative decoding (--speculative-ngram {SPEC_K}), extractive prompts, "
+    log(f"[8/11] speculative decoding (--speculative-ngram {SPEC_K}), extractive prompts, "
         f"greedy then seeded sampled, against the same engine without speculation: same "
         f"weights, bf16 pages at 4096 (split walk) and 2048 (single walk), int8 pages at "
         f"2048")
@@ -2514,7 +2890,7 @@ def main() -> int:
 
         serve8[tag] = serve_spec_leg(make_engine, tag, card, extras=tag == "bf16_4096")
 
-    log(f"[9/10] decode bursts (--decode-burst {BURST}, pipelined, CUDA graphs): a greedy "
+    log(f"[9/11] decode bursts (--decode-burst {BURST}, pipelined, CUDA graphs): a greedy "
         f"and a seeded request alone, in a full batch and beside a {A1_LONG}-token chunked "
         f"prompt on burst, per-token and fused-step engines (no prefix cache, "
         f"--tokens-per-step {TOKENS_PER_STEP}); graph against eager; steady-state "
@@ -2539,16 +2915,32 @@ def main() -> int:
                                       extras=tag == "bf16_4096")
     serve9["cli_defaults"] = serve_burst_defaults(params, card)
 
+    log(f"[10/11] guided decoding (response_format json_object and json_schema, greedy and "
+        f"seeded) beside bursting unguided streams, through the server: same weights, bf16 "
+        f"pages at 2048, --decode-burst {BURST}")
+    engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda",
+                                                 prefix_caching=False),
+                          max_batch_size=8, params=params, device="cuda",
+                          enable_prefix_caching=False, token_budget=TOKENS_PER_STEP,
+                          decode_burst_steps=BURST)
+    serve10 = serve_guided_leg(engine, card)
+    del engine
+    torch.cuda.empty_cache()
+
     pa_py = "paged_attention.py"
     legs = [serve4, serve5, serve6, serve6s, *serve7.values(),
             *(leg[side][part] for leg in serve8.values() for side in ("on", "off")
               for part in ("greedy", "sampled") if part in leg[side]),
             *({"launches": v} for leg in serve9.values() if "streams" in leg
               for v in leg["launches"].values()),
-            serve9["cli_defaults"]]
+            serve9["cli_defaults"], serve10]
 
     def served(name):  # launches over every serve leg
         return sum(leg["launches"][name] for leg in legs)
+
+    for name in ("gemm", "rms_norm"):
+        if served(name) == 0:
+            raise AssertionError(f"the serve legs launched no {name} kernel")
 
     kernels = [
         kernel_row("flash_attention", "flash_attention.cu", "flash_attention.py:150",
@@ -2569,6 +2961,16 @@ def main() -> int:
         for sfx in ("", "_int8"):
             kernels.append(kernel_row(name + sfx, source, f"{pa_py}:{line}",
                                       launches_b[name + sfx], prims[name + sfx]))
+    tf_py = "fusioninfer_tpu/models/transformer.py"
+    for name, source, at, res in (
+            ("gemm", "gemm.cu", f"{tf_py}:{JAX_DOT_LINE}", gemms["gate/up"]["rows"][8]),
+            ("rms_norm", "rms_norm.cu", f"{tf_py}:{JAX_NORM_LINE}",
+             norms["d_model"]["rows"][8])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"fusioninfer_tpu_torch/csrc/{source}", "replaces": at,
+                        "launches": served(name),
+                        **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}})
     for pages, res in split_serve.items():
         leg = serve4 if pages == "bf16" else serve6
         name = "ragged_paged_attention_kvsplit" + ("_int8" if pages == "int8" else "")
@@ -2594,9 +2996,10 @@ def main() -> int:
                    "spec_shape": {f"{'split' if sp else 'single'}{'_int8' if q8 else ''}": r
                                   for (sp, q8), r in spec_shape.items()},
                    "spec_bits_rows": spec_bits, "spec_cluster": spec_cl,
-                   "spec_legs": serve8, "burst_legs": serve9,
+                   "spec_legs": serve8, "burst_legs": serve9, "guided_leg": serve10,
+                   "gemm": gemms, "rms_norm": norms,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[10/10] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[11/11] done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,9 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "propose up to K draft tokens per sequence from "
                             "its own context and score them in the decode "
                             "step's forward (0 = off); greedy outputs "
-                            "are token-identical on the CPU, and on CUDA "
-                            "can part at a near-tie, as the GEMM's M "
-                            "changes with the drafts")
+                            "are token-identical with it on or off, on "
+                            "CUDA as on the CPU")
     serve.add_argument("--decode-burst", type=int, default=8, metavar="N",
                        help="decode bursts: up to N decode + sample steps "
                             "in one dispatch (a CUDA graph on the card), "

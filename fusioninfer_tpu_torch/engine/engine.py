@@ -42,21 +42,33 @@ sequence one token per :meth:`NativeEngine.step`.  As in the JAX engine:
 * **logprobs and logit_bias**: logprobs come from the raw
   (unpenalized) logits; a request's bias is added after the penalties
   and the min-tokens suppression, at admission and every decode step.
+* **Guided decoding** (``response_format`` json_object / json_schema):
+  a request's byte machine (:func:`guided.machine_for`) masks every
+  token whose bytes the grammar does not allow
+  (:class:`token_mask.GrammarTokenMasker`, after the penalties and the
+  min-tokens suppression) at its first token and every decode step, and
+  finishes it with ``"stop"`` the moment its top-level value closes.
+  Guided rows take no drafts and ride no burst: they step once a pass
+  beside the rest of the batch.  A resumed request replays its
+  generated tokens through a fresh machine.
 * **Decode bursts** (``decode_burst_steps`` > 1): the running rows take
   up to that many decode + sample steps in one dispatch
   (:func:`model_runner.decode_burst`, replayed as a CUDA graph on the
   card by :class:`engine.graphs.BurstRunner`), each sampled token fed
   back on the device.  The span is 1 or ``decode_burst_steps`` and
   clamps to 1 while admission work is pending; rows that need host work
-  each token (logprobs, ``logit_bias``) step one token in the same pass.
+  each token (guided masks, logprobs, ``logit_bias``) step one token in
+  the same pass.
   With ``pipeline_bursts`` the successor burst is dispatched from the
   device-side control carry before the current one's tokens are read.
-* **Fixed GEMM rows**: a decode-only forward runs its embed, layer
-  GEMMs, norms and lm_head over ``max_batch_size · (1 + k)`` rows
-  whatever the number of live slots, so a stream's decode tokens do not
-  depend on its batch (:func:`model_runner.fused_step`).
+* **Row-invariant forwards**: on the card every projection and norm
+  reduces a row in an order fixed by the weight's shape (:mod:`ops.gemm`,
+  :mod:`ops.rms_norm`) and the walks' per-token bits do not depend on
+  the other rows, so a forward runs over its live tokens and a stream's
+  tokens do not depend on what shares its forwards
+  (:func:`model_runner.fused_step`).
 
-Left out, and absent rather than switched off: LoRA, guided decoding,
+Left out, and absent rather than switched off: LoRA,
 SLO tiers and priorities (the wait queue orders by arrival), deadlines,
 the host KV tier and the PD/KV fabric.  Decode bursts on a
 sliding-window model wait for its page trimming and raise at
@@ -69,6 +81,7 @@ only caller of :meth:`step`; other threads enter only through the locked
 
 from __future__ import annotations
 
+import collections
 import heapq
 import itertools
 import logging
@@ -82,6 +95,11 @@ import torch
 
 from fusioninfer_tpu_torch.engine.fused import pack_ragged_batch, pow2_rows
 from fusioninfer_tpu_torch.engine.graphs import BurstRunner
+from fusioninfer_tpu_torch.engine.guided import (
+    SchemaByteMachine,
+    compile_schema_str,
+    machine_for,
+)
 from fusioninfer_tpu_torch.engine.kv_cache import (
     CacheConfig,
     PageAllocator,
@@ -104,8 +122,9 @@ from fusioninfer_tpu_torch.engine.sampler import (
 )
 from fusioninfer_tpu_torch.engine.sched import TokenBudget, derive_token_budget
 from fusioninfer_tpu_torch.engine.spec import NgramProposer
+from fusioninfer_tpu_torch.engine.token_mask import GrammarTokenMasker
 from fusioninfer_tpu_torch.models.config import ModelConfig
-from fusioninfer_tpu_torch.models.transformer import init_params
+from fusioninfer_tpu_torch.models.transformer import init_params, tied_head
 from fusioninfer_tpu_torch.ops.paged_attention import (
     engine_cluster_size,
     pick_kv_splits,
@@ -165,6 +184,9 @@ class _SeqState:
     n_prompt: int
     slot: int
     seed: int = 0
+    # the request's guided byte machine (JsonByteMachine or
+    # SchemaByteMachine), advanced by every emitted token; None = unguided
+    guided: Optional[object] = None
 
     @property
     def n_generated(self) -> int:
@@ -244,19 +266,13 @@ class NativeEngine:
         tokens one :meth:`step` may process, decode charged first;
         None with no chunk size means monolithic prefill.
         ``fused_step``: a step with both decode rows and prefill chunks
-        runs them in one forward; output streams are the same either way
-        on the CPU.  On the card a decode row beside a chunk can part
-        there at a near-tie, because the mixed forward's layer GEMMs run
-        at its live packed tokens, and cuBLAS may pick another kernel at
-        another M.  Decode-only forwards run their GEMMs at
-        ``max_batch_size · (1 + speculative_k)`` rows whatever the live
-        slots, so on the card as on the CPU a stream's decode tokens do
-        not depend on its batch (per-token engines with ``fused_step``
-        off and burst engines).  ``speculative_k``: n-gram speculative
-        decoding with up to this many drafts a row and step (None = off);
-        greedy streams are token-identical with it on or off on the CPU,
-        and on the card can part at a near-tie (the two engines' GEMMs
-        run at different row counts).
+        runs them in one forward; output streams are the same either way,
+        on the card as on the CPU: a row's bits depend on nothing else
+        that rides its forward (:func:`model_runner.fused_step`), so a
+        stream's tokens are the same alone, in a batch and beside a
+        chunk.  ``speculative_k``: n-gram speculative decoding with up to
+        this many drafts a row and step (None = off); greedy streams are
+        token-identical with it on or off, on the card as on the CPU.
 
         ``decode_burst_steps``: up to this many decode + sample steps a
         dispatch for the rows that need no host work each token (1 =
@@ -275,6 +291,8 @@ class NativeEngine:
             params = init_params(cfg, gen, self.device)
         else:
             params = _to_device(params, self.device)
+        if self.device.type == "cuda":
+            params = tied_head(params)  # the GEMM kernel reads [D, V] in place
         self.params = params
         self.cache = init_kv_cache(cfg, self.cache_cfg, self.device)
         self.prefix_caching = enable_prefix_caching
@@ -351,6 +369,13 @@ class NativeEngine:
         # slot -> (ids, vals) device tensors of a request's logit_bias,
         # built once at activation
         self._slot_bias: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        # guided decoding: the grammar token masker over the vocab's byte
+        # strings (set_guided_vocab; None = guided requests rejected), and
+        # device [V] legality rows keyed by (slot, machine signature): in a
+        # string or digit run the signatures repeat step after step, so a
+        # row's mask is uploaded once, not every step
+        self._masker = None
+        self._guided_legal_dev: collections.OrderedDict = collections.OrderedDict()
         # counters (stats / the server's /health)
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
@@ -364,6 +389,22 @@ class NativeEngine:
         self.spec_accepted_total = 0
 
     # -- public API ----------------------------------------------------------
+
+    def set_guided_vocab(self, token_bytes) -> None:
+        """Install per-token byte strings (``[V]`` list of bytes or None,
+        :func:`token_mask.token_byte_strings`) and build the grammar token
+        masker: guided decoding then works for any tokenizer whose vocab
+        has a byte mapping."""
+        V = self.cfg.vocab_size
+        tb = list(token_bytes)[:V]
+        tb += [None] * (V - len(tb))  # the model's vocab may exceed the tokenizer's
+        self._masker = GrammarTokenMasker(tb)
+        # rows cached under a previous vocab would mask by its byte strings
+        self._guided_legal_dev.clear()
+
+    @property
+    def guided_enabled(self) -> bool:
+        return self._masker is not None
 
     @property
     def token_budget(self) -> Optional[int]:
@@ -417,10 +458,22 @@ class NativeEngine:
             raise ValueError(f"prompt token outside vocab [0, {V})")
         if any(not 0 <= t < V for t in request.params.stop_token_ids):
             raise ValueError(f"stop token id outside vocab [0, {V})")
+        self._validate_guided(request)
         if request.arrival_time < 0:
             request.arrival_time = time.monotonic()
         with self._lock:
             self.waiting.push(request)
+
+    def _validate_guided(self, request: Request) -> None:
+        """Admission-time guided checks: a masker is installed and the
+        schema compiles, so a bad request is refused (a 400 from the
+        server) instead of failing the engine thread mid-serve."""
+        p = request.params
+        if (p.guided_json or p.guided_schema) and self._masker is None:
+            raise ValueError("guided JSON needs a token→byte mapping; the serving "
+                             "tokenizer does not provide one")
+        if p.guided_schema:
+            SchemaByteMachine(compile_schema_str(p.guided_schema))
 
     def cancel(self, request_id: str) -> None:
         """Abandon a request; takes effect at the next step."""
@@ -741,21 +794,18 @@ class NativeEngine:
             [(request, prefix, resumed, logits[i: i + 1])
              for i, (request, prefix, resumed) in enumerate(items)])
 
-    def _ragged_forward(self, packed, gemm_rows: int = 0):
-        """Dispatch ONE flat ragged forward and charge its weight pass →
-        ``(logits [B, W, V], chunk_logits [NC, V])``.  Every engine forward
-        that reads paged context (decode rows and their spec windows, chunk
-        advances, cache-hit suffixes, mixed steps) lands here.
-        ``gemm_rows``: the fixed row count of a decode-only forward's
-        GEMMs (``B·W``); 0 runs them over the packed tokens.  The walk
-        launches over the packed tokens either way."""
+    def _ragged_forward(self, packed):
+        """Dispatch ONE flat ragged forward over the packed tokens and
+        charge its weight pass → ``(logits [B, W, V], chunk_logits [NC,
+        V])``.  Every engine forward that reads paged context (decode rows
+        and their spec windows, chunk advances, cache-hit suffixes, mixed
+        steps) lands here."""
         arrays = (packed.tokens, packed.row_starts, packed.q_begins,
                   packed.q_lens, packed.page_tables, packed.sel, packed.chunk_sel)
         logits, chunk_logits = fused_step(
             self.cfg, self.cache_cfg, self.params, self.cache,
             *self._upload_int32(arrays), kv_splits=self.kv_splits,
-            cluster=self.walk_cluster, n_tokens=gemm_rows or packed.packed_tokens,
-            n_walk=packed.packed_tokens)
+            cluster=self.walk_cluster, n_tokens=packed.packed_tokens)
         self.sched.charge_weight_pass()
         return logits, chunk_logits
 
@@ -919,7 +969,7 @@ class NativeEngine:
         counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
         outs = torch.zeros_like(counts)
         sup = torch.zeros((B, V), dtype=torch.bool, device=dev)
-        seeds, gens, biases = [], [], []
+        seeds, gens, biases, machines = [], [], [], []
         for i, (request, prefix, _, _) in enumerate(entries):
             rid = request.request_id
             chain = self._admission_chains.pop(rid, None)
@@ -936,16 +986,23 @@ class NativeEngine:
             seeds.append(self._request_seed(request))
             gens.append(len(prefix) - n_prompt)
             biases.append(self._bias_tensors(p))
+            machine = machine_for(p)
+            if machine is not None:
+                for t in prefix[n_prompt:]:  # a resume replays its generated bytes
+                    self._masker.advance_token(machine, t)
+            machines.append(machine)
         params = [e[0].params for e in entries]
         tokens, logprobs = self._sample(logits, params, counts, outs, sup, seeds,
-                                        gens, biases)
+                                        gens, biases,
+                                        [(-1, m) if m is not None else None
+                                         for m in machines])
         outputs = []
         for i, (request, prefix, resumed, _) in enumerate(entries):
             token = tokens[i]
             slot = self._free_slots.pop()
             state = _SeqState(request=request, tokens=list(prefix) + [token],
                               n_prompt=len(request.prompt_tokens), slot=slot,
-                              seed=seeds[i])
+                              seed=seeds[i], guided=machines[i])
             counts[i, token] += 1
             outs[i, token] += 1
             self._token_counts[slot] = counts[i]
@@ -960,7 +1017,8 @@ class NativeEngine:
                 self.prompt_tokens_total += len(prefix)
             self.generation_tokens_total += 1
             outputs.append(self._emit(state, token, first=not resumed,
-                                      logprobs=logprobs[i]))
+                                      logprobs=logprobs[i],
+                                      force_finish=self._guided_advance(state, token)))
         return outputs
 
     def _bias_tensors(self, params: SamplingParams):
@@ -974,12 +1032,14 @@ class NativeEngine:
                              device=self.device))
 
     def _sample(self, logits, params: list[SamplingParams], counts, outs, sup,
-                seeds: list[int], gen_counts: list[int], biases):
-        """Penalties → min-tokens suppression → logit bias → sample, for
-        rows aligned with ``params`` (``biases[i]``: row i's
-        ``(ids, vals)`` or None) → ``(host tokens, logprobs)``, where
+                seeds: list[int], gen_counts: list[int], biases, guided=None):
+        """Penalties → min-tokens suppression → guided masks → logit bias
+        → sample, for rows aligned with ``params`` (``biases[i]``: row i's
+        ``(ids, vals)`` or None; ``guided[i]``: row i's ``(slot,
+        machine)`` or None) → ``(host tokens, logprobs)``, where
         ``logprobs[i]`` is None unless row i asked for them
-        (:meth:`_logprobs`, off the raw ``logits``)."""
+        (:meth:`_logprobs`, off the raw ``logits``).  A candidate row
+        (top-k ≤ 64) takes its candidates from the masked logits."""
         dev = self.device
         raw = logits
 
@@ -996,6 +1056,11 @@ class NativeEngine:
         if any(early):
             logits = torch.where(col(early, torch.bool)[:, None] & sup,
                                  torch.tensor(float("-inf"), device=dev), logits)
+        rows = [i for i, g in enumerate(guided or ()) if g is not None]
+        if rows:
+            legal = torch.stack([self._guided_legal(*guided[i]) for i in rows])
+            idx = col(rows, torch.int64)
+            logits = logits.index_put((idx,), logits[idx].masked_fill(~legal, float("-inf")))
         if any(b is not None for b in biases):
             logits = logits.clone()
             for i, b in enumerate(biases):
@@ -1007,6 +1072,28 @@ class NativeEngine:
                       mode=sample_mode(params))
         return ([int(t) for t in toks.tolist()],
                 self._logprobs(raw, [p.logprobs for p in params], toks))
+
+    def _guided_legal(self, slot: int, machine) -> torch.Tensor:
+        """A guided row's ``[V]`` legality on the device, kept in an LRU of
+        eight rows keyed by ``(slot, machine signature)``."""
+        key = (slot, machine.signature())
+        row = self._guided_legal_dev.get(key)
+        if row is None:
+            row = torch.from_numpy(self._masker.token_mask(machine)).to(self.device)
+            if len(self._guided_legal_dev) >= 8:  # bound the device memory held
+                self._guided_legal_dev.popitem(last=False)
+            self._guided_legal_dev[key] = row
+        else:
+            self._guided_legal_dev.move_to_end(key)
+        return row
+
+    def _guided_advance(self, state: _SeqState, token: int) -> Optional[str]:
+        """Advance a guided row's machine by an emitted token's bytes →
+        ``"stop"`` the moment its top-level value closes, else None."""
+        if state.guided is None:
+            return None
+        self._masker.advance_token(state.guided, token)
+        return "stop" if state.guided.done else None
 
     @staticmethod
     def _logprobs(raw, ns: list[Optional[int]], toks):
@@ -1064,7 +1151,7 @@ class NativeEngine:
         the rows that need no host work each token ride one burst of the
         pass's span; the others, and every row of a per-token engine,
         take the same ragged forward as the fused step with zero chunk
-        rows, its GEMMs at the fixed ``B·W`` rows."""
+        rows."""
         if self._inflight is not None:
             return self._consume_inflight()
         failures, span = self._ensure_decode_capacity(self._burst_span())
@@ -1085,23 +1172,21 @@ class NativeEngine:
                 return failures
         spec_drafts = self._propose_drafts(live) if self.spec_k else {}
         window, counts, positions, tables = self._decode_window(live, spec_drafts)
-        rows = self.max_batch_size * window.shape[1]
         packed = pack_ragged_batch(
             window, counts, positions, tables, np.zeros_like(counts), [],
-            self.cache_cfg.trash_page, rows=self._ragged_rows, chunk_rows=0,
-            min_tokens=rows)
-        logits_w, _ = self._ragged_forward(packed, gemm_rows=rows)
+            self.cache_cfg.trash_page, rows=self._ragged_rows, chunk_rows=0)
+        logits_w, _ = self._ragged_forward(packed)
         return failures + self._decode_finish(live, logits_w, spec_drafts)
 
     # -- decode bursts -------------------------------------------------------
 
     @staticmethod
     def _row_bursts(st: _SeqState) -> bool:
-        """Can this row ride a burst?  logprobs and ``logit_bias`` need
-        host work each token: such a row steps once per pass while the
-        rest of the batch bursts."""
+        """Can this row ride a burst?  Guided masks, logprobs and
+        ``logit_bias`` need host work each token: such a row steps once
+        per pass while the rest of the batch bursts."""
         p = st.request.params
-        return p.logprobs is None and not p.logit_bias
+        return st.guided is None and p.logprobs is None and not p.logit_bias
 
     def _decode_need(self, st: _SeqState, span: int) -> int:
         """Tokens of page coverage this row needs from the next decode
@@ -1247,13 +1332,16 @@ class NativeEngine:
     def _spec_eligible(self, st: _SeqState) -> bool:
         """Speculation stays where it cannot change what a row emits:
         no penalties (they would need counts that evolve inside the
-        window), no logprobs, no ``logit_bias`` (window scoring ignores
-        it), past ``min_tokens``."""
+        window), no logprobs, no guided grammar (drafts would bypass its
+        mask), no ``logit_bias`` (window scoring ignores it), past
+        ``min_tokens``."""
         p = st.request.params
         return (p.presence_penalty == 0.0
                 and p.frequency_penalty == 0.0
                 and p.repetition_penalty == 1.0
                 and p.logprobs is None
+                and not p.guided_json
+                and not p.guided_schema
                 and not p.logit_bias
                 and st.n_generated >= p.min_tokens)
 
@@ -1347,7 +1435,9 @@ class NativeEngine:
                 logits_w[idx, 0], params, self._token_counts[idx],
                 self._output_counts[idx], self._suppress[idx],
                 [live[s].seed for s in one], [live[s].n_generated for s in one],
-                [self._slot_bias.get(s) for s in one])
+                [self._slot_bias.get(s) for s in one],
+                [(s, live[s].guided) if live[s].guided is not None else None
+                 for s in one])
             sampled = {s: (t, lp) for s, t, lp in zip(one, toks, lps)}
         bursts = self._spec_bursts(live, logits_w, spec_drafts) if spec_drafts else {}
         self.sched.charge_decode(len(live) + sum(len(d) for d in spec_drafts.values()))
@@ -1358,7 +1448,8 @@ class NativeEngine:
                 st.tokens.append(token)
                 bumped.append((slot, token))
                 self.generation_tokens_total += 1
-                outputs.append(self._emit(st, token, logprobs=lp))
+                outputs.append(self._emit(st, token, logprobs=lp,
+                                          force_finish=self._guided_advance(st, token)))
                 continue
             burst, accepted = bursts[slot]
             self.spec_proposed_total += len(spec_drafts[slot])
@@ -1456,13 +1547,16 @@ class NativeEngine:
             torch.cuda.synchronize(self.device)
 
     def _emit(self, state: _SeqState, token: int, first: bool = False,
-              logprobs: Optional[tuple] = None) -> StepOutput:
-        """``logprobs``: ``(logprob, top_logprobs)`` of a row that asked."""
+              logprobs: Optional[tuple] = None,
+              force_finish: Optional[str] = None) -> StepOutput:
+        """``logprobs``: ``(logprob, top_logprobs)`` of a row that asked;
+        ``force_finish``: a finish reason that wins over the others (a
+        guided row's closed grammar)."""
         params = state.request.params
-        finish_reason = None
-        if token in params.stop_token_ids:
+        finish_reason = force_finish
+        if finish_reason is None and token in params.stop_token_ids:
             finish_reason = "stop"
-        elif state.n_generated >= params.max_tokens:
+        elif finish_reason is None and state.n_generated >= params.max_tokens:
             finish_reason = "length"
         if finish_reason:
             self._finish(state)

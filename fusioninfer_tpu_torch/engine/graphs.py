@@ -14,8 +14,9 @@ the JAX package).
 
 A capture first runs the burst eagerly twice on a side stream with every
 row inactive (writes go to the trash page, the count bumps add 0), so
-the kernels' builds, their first launches (cluster attributes,
-occupancy queries) and cuBLAS's workspaces exist before capture; then
+the kernels' builds, their first launches (cluster and shared-memory
+attributes, occupancy queries) and the GEMM's split counters exist
+before capture; then
 it captures with the same inert controls.  A capture that fails raises:
 nothing on the card falls back to the eager loop.
 

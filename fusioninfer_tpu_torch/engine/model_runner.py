@@ -40,6 +40,7 @@ from fusioninfer_tpu_torch.models.transformer import (
     rms_norm,
     rope_tables,
 )
+from fusioninfer_tpu_torch.ops.gemm import matmul
 from fusioninfer_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_kvsplit,
@@ -118,8 +119,7 @@ def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
                q_begins: torch.Tensor, q_lens: torch.Tensor,
                page_tables: torch.Tensor, sel: torch.Tensor,
                chunk_sel: torch.Tensor, kv_splits: int = 0,
-               cluster: int | None = None, *, n_tokens: int,
-               n_walk: int | None = None):
+               cluster: int | None = None, *, n_tokens: int):
     """ONE weight pass over a flat ragged token axis → ``(logits [B, W,
     V], chunk_logits [NC, V])``.
 
@@ -140,21 +140,15 @@ def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
     engine) and the chunk group ``[NC, D]`` (the power-of-two chunk
     count).
 
-    ``n_tokens``: the rows of the flat axis the embed, the layer GEMMs,
-    the norms and the lm_head run over, a prefix of it.  A GEMM's row
-    bits can change with its row count M on the card (cuBLAS picks its
-    kernel by shape), so the engine fixes M where it can: a decode-only
-    forward runs ``n_tokens = B·W`` whatever the number of live slots
-    (the rows past the live tokens are inert padding), which makes a
-    stream's decode tokens independent of its batch on the card as on
-    the CPU.  A forward with chunk rows runs its live packed tokens, a
-    count that moves with the chunks: there a decode row's bits may
-    differ on the card from a decode-only forward's (identical on the
-    CPU).  ``n_walk`` (default ``n_tokens``): the leading tokens the page
-    walk launches over, the live ones; the rest get zero attention
-    without a launch, so the fixed M costs the walk nothing."""
+    ``n_tokens``: the rows of the flat axis the forward runs over, a
+    prefix of it (the engine passes the live packed tokens; the pow2
+    padding after them launches nothing).  On the card every projection
+    and norm reduces each row in an order fixed by the weight's shape
+    (:mod:`ops.gemm`, :mod:`ops.rms_norm`) and the walks' per-token bits
+    do not depend on the other rows, so a row's logits are the same
+    whatever else rides the forward: alone, in a batch, beside a chunk
+    or beside spec windows, as on the CPU."""
     T = n_tokens
-    n_walk = T if n_walk is None else n_walk
     tokens = tokens[:T]
     ps = cache_cfg.page_size
     dev = tokens.device
@@ -173,13 +167,11 @@ def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
         q, k, v = qkv_proj(cfg, layer, x, rope)
         _scatter_kv(cache, l, k[:, 0], v[:, 0], write_page, write_slot,
                     head_axis=1)
-        attn = _ragged_attn(q[:n_walk, 0].contiguous(), cache, page_tables,
+        attn = _ragged_attn(q[:, 0].contiguous(), cache, page_tables,
                             row_starts, q_begins, q_lens, layer=l,
                             window=cfg.sliding_window, kv_splits=kv_splits,
                             cluster=cluster)
-        if n_walk < T:
-            attn = torch.cat([attn, attn.new_zeros((T - n_walk, attn.shape[1]))])
-        x = x + attn[:, None, :] @ layer["wo"]
+        x = x + matmul(attn[:, None, :], layer["wo"])
         x = x + mlp_block(cfg, layer, x)
     h = rms_norm(x, params["final_norm"], cfg.rms_eps)[:, 0]  # [T, D]
     idx = sel.long().clamp(0, T - 1)  # [B, W]
@@ -234,8 +226,8 @@ def decode_burst(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
     controls (:data:`CTL_I_COLS`, :data:`CTL_F_COLS`); ``token_counts``,
     ``output_counts`` [B, V] int32 are bumped in place by each active
     row's sampled token, ``suppress`` [B, V] bool is the min-tokens
-    stop-id mask; page_tables [B, mp] int32.  Each step runs the fixed-M
-    :func:`decode_step` (all B slots), :func:`sampler.apply_penalties`,
+    stop-id mask; page_tables [B, mp] int32.  Each step runs
+    :func:`decode_step` over all B slots (the graph's shapes are fixed), :func:`sampler.apply_penalties`,
     the min-tokens suppression from the device ``gen_count``, and
     :func:`sampler.sample` (static ``sample_mode``) at counter
     ``gen_count``: the single-step path's math, so a burst gives what

@@ -11,15 +11,15 @@ counterpart of the JAX package's ``make_row_keys`` (``fold_in(seed,
 n)``): no generator object, nothing built on the host, so the same draw
 runs eagerly, inside a decode burst whose counters advance on the
 device, and inside a CUDA graph replayed with new seeds.  The draw never
-depends on the batch, and neither do the logits of a decode-only forward
-(its GEMMs run at a fixed row count, :func:`model_runner.fused_step`): a
-seeded request produces the same tokens whether it runs alone or packed
-with others, per token or in bursts, and after a preemption resumes the
-stream where it stopped, on the card as on the CPU.  Two cases hold on
-the CPU only: speculation on against off, and decode rows fused into one
-forward with prefill chunks (``--decode-burst 1 --fused-step``), where
-the GEMMs' row count differs and on the card a near-tie can flip.  The
-bits differ from the JAX package's (a different hash).
+depends on the batch, and neither do a row's logits: every projection
+and norm reduces a row in an order fixed by the weight's shape
+(:mod:`ops.gemm`, :mod:`ops.rms_norm`), so a seeded request produces the
+same tokens whether it runs alone or packed with others, beside a
+prefill chunk in one fused forward (``--decode-burst 1 --fused-step``),
+per token or in bursts, and after a preemption resumes the stream where
+it stopped, on the card as on the CPU; greedy streams are the same with
+speculation on or off.  The bits differ from the JAX package's (a
+different hash).
 
 Every row draws by its own params, never by its batch's: a row with
 ``0 < top_k <= LM_HEAD_TOPK`` and ``min_p`` off draws from its candidate
@@ -73,6 +73,12 @@ class SamplingParams:
     # OpenAI `logprobs`: the chosen token's log-probability and the top-N
     # alternatives per step, from the raw (unpenalized) distribution
     logprobs: Optional[int] = None
+    # OpenAI `response_format: json_object`: constrain output to valid
+    # JSON via byte-level grammar masking (engine/guided.py)
+    guided_json: bool = False
+    # OpenAI `response_format: json_schema`: canonical-JSON schema string
+    # compiled to a schema-constrained byte machine (guided.SchemaByteMachine)
+    guided_schema: str = ""
     # OpenAI `logit_bias`: additive per-token-id adjustments, applied after
     # penalties and the min-tokens suppression every step
     logit_bias: tuple[tuple[int, float], ...] = ()

@@ -2,7 +2,10 @@
 completion surface of ``fusioninfer_tpu/engine/server.py``).
 
 Endpoints: ``POST /v1/completions`` (blocking JSON, or SSE with
-``"stream": true``), ``GET /v1/models`` and ``GET /health``.  One
+``"stream": true``), ``GET /v1/models`` and ``GET /health``.
+``response_format`` ``text``, ``json_object`` and ``json_schema`` are
+served by guided decoding (``engine/guided.py``); the tokenizer's vocab
+bytes are installed in the engine at start.  One
 engine-loop thread steps the engine and routes each :class:`StepOutput`
 to the channel of its request; handler threads (stdlib
 ``ThreadingHTTPServer``) block on their channel.
@@ -19,7 +22,9 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from fusioninfer_tpu_torch.engine.engine import NativeEngine, Request, StepOutput
+from fusioninfer_tpu_torch.engine.guided import SchemaByteMachine, compile_schema_str
 from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+from fusioninfer_tpu_torch.engine.token_mask import token_byte_strings
 from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
 
 logger = logging.getLogger("fusioninfer.torch.server")
@@ -30,7 +35,7 @@ _STREAM_IDLE_TIMEOUT_S = 300.0
 
 # request fields of the OpenAI surface this slice does not serve yet;
 # a request naming one gets a 400 rather than a silently different answer
-_UNSUPPORTED = ("response_format", "echo", "tools", "suffix", "best_of")
+_UNSUPPORTED = ("echo", "tools", "suffix", "best_of")
 
 
 def _piece(tokenizer, token: int) -> str:
@@ -97,11 +102,14 @@ def _held_back(text: str, stops) -> int:
 class EngineServer:
     def __init__(self, engine: NativeEngine, host: str = "127.0.0.1",
                  port: int = 8000):
+        """The server's tokenizer's vocab byte strings are installed in
+        the engine for guided decoding."""
         self.engine = engine
         self.model_name = engine.cfg.name
         self.host = host
         self.port = port
         self.tokenizer = ByteTokenizer()
+        engine.set_guided_vocab(token_byte_strings(self.tokenizer, engine.cfg.vocab_size))
         self._lock = threading.Lock()
         self._channels: dict[str, _RequestChannel] = {}
         self._stop = threading.Event()
@@ -194,6 +202,7 @@ class EngineServer:
         if mt is None:
             mt = body.get("max_completion_tokens")
         seed = body.get("seed")
+        guided_json, guided_schema = self._response_format(body.get("response_format"))
         return SamplingParams(
             temperature=float(body.get("temperature", 1.0)),
             top_k=int(body.get("top_k", 0)),
@@ -208,8 +217,37 @@ class EngineServer:
             repetition_penalty=float(body.get("repetition_penalty", 1.0)),
             seed=int(seed) if seed is not None else None,
             logprobs=logprobs,
+            guided_json=guided_json,
+            guided_schema=guided_schema,
             logit_bias=logit_bias,
         )
+
+    @staticmethod
+    def _response_format(rf) -> tuple[bool, str]:
+        """OpenAI ``response_format`` → ``(guided_json, guided_schema)``:
+        ``text`` (or none) is unguided, ``json_object`` any JSON object,
+        ``json_schema`` a document conforming to ``json_schema.schema``
+        (compiled here, so an unsupported schema is a 400 with the
+        compiler's message).  Any other type is a 400."""
+        if rf is None:
+            return False, ""
+        rf_type = rf.get("type") if isinstance(rf, dict) else rf
+        if rf_type == "json_object":
+            return True, ""
+        if rf_type == "json_schema":
+            # {"type": "json_schema", "json_schema": {"name": ..., "schema": {...}}}
+            js = rf.get("json_schema") if isinstance(rf, dict) else None
+            schema = js.get("schema") if isinstance(js, dict) else None
+            if not isinstance(schema, dict):
+                raise ValueError("response_format json_schema requires "
+                                 "json_schema.schema to be an object")
+            canonical = json.dumps(schema, sort_keys=True, separators=(",", ":"))
+            SchemaByteMachine(compile_schema_str(canonical))
+            return False, canonical
+        if rf_type not in (None, "text"):
+            raise ValueError(f"unsupported response_format type {rf_type!r}; "
+                             "supported: text, json_object, json_schema")
+        return False, ""
 
     def _prompt(self, body: dict) -> tuple[list[int], SamplingParams]:
         prompt = body.get("prompt", "")

@@ -4,8 +4,11 @@ Port of ``fusioninfer_tpu/models/transformer.py`` (dense path).  Layer
 weights are stacked on a leading ``n_layers`` axis and kept in the JAX
 package's ``[in, out]`` layout, so ``x @ w`` reads the same on both
 sides; the forward loops over layers in Python where the JAX package
-scans.  The large products stay ``torch.matmul`` (cuBLAS on the card),
-as the JAX package leaves them to XLA; attention goes through
+scans.  Every projection goes through :func:`ops.gemm.matmul` and every
+norm through :func:`ops.rms_norm.rms_norm`: on the card their kernels
+reduce each row in an order fixed by the weight's shape, so a row's bits
+never depend on how many rows share the forward; on the CPU they are
+``x @ w`` and the plain norm.  Attention goes through
 :mod:`fusioninfer_tpu_torch.ops.flash_attention`.
 """
 
@@ -16,15 +19,10 @@ import torch.nn.functional as F
 
 from fusioninfer_tpu_torch.models.config import ModelConfig
 from fusioninfer_tpu_torch.ops.flash_attention import flash_attention
+from fusioninfer_tpu_torch.ops.gemm import matmul
+from fusioninfer_tpu_torch.ops.rms_norm import rms_norm
 
 Params = dict
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    orig = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
-    return (x * weight.float()).to(orig)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -59,7 +57,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return matmul(F.silu(matmul(x, w_gate)) * matmul(x, w_up), w_down)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -131,9 +129,9 @@ def qkv_proj(cfg: ModelConfig, layer: Params, x: torch.Tensor, rope):
     B, S, _ = x.shape
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-    q = (h @ layer["wq"]).reshape(B, S, H, Hd)
-    k = (h @ layer["wk"]).reshape(B, S, KV, Hd)
-    v = (h @ layer["wv"]).reshape(B, S, KV, Hd)
+    q = matmul(h, layer["wq"]).reshape(B, S, H, Hd)
+    k = matmul(h, layer["wk"]).reshape(B, S, KV, Hd)
+    v = matmul(h, layer["wv"]).reshape(B, S, KV, Hd)
     if cfg.qk_norm:
         q = rms_norm(q, layer["q_norm"], cfg.rms_eps)
         k = rms_norm(k, layer["k_norm"], cfg.rms_eps)
@@ -151,16 +149,26 @@ def layer_forward(cfg: ModelConfig, layer: Params, x: torch.Tensor, rope):
     q, k, v = qkv_proj(cfg, layer, x, rope)
     attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True, window=cfg.sliding_window)
-    x = x + attn @ layer["wo"]
+    x = x + matmul(attn, layer["wo"])
     return x + mlp_block(cfg, layer, x), (k, v)
 
 
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states → f32 logits; tied embeddings use the transposed table."""
+    """Hidden states → f32 logits; tied embeddings use the transposed table
+    (on the card a contiguous copy of it, :func:`tied_head`)."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return (x @ head).float()
+    return matmul(x, head).float()
+
+
+def tied_head(params: Params) -> Params:
+    """``params`` with a tied model's head as a contiguous ``[D, V]`` copy of
+    the embedding table's transpose, which the GEMM kernel reads in place;
+    a model with its own head is returned as it is."""
+    if "lm_head" in params:
+        return params
+    return {**params, "lm_head": params["embed"].T.contiguous()}
 
 
 def hidden_states(cfg: ModelConfig, params: Params,

@@ -1,1 +1,2 @@
-"""Attention kernels and their plain PyTorch versions."""
+"""The hand-written kernels (attention, the projections' GEMM, RMSNorm)
+and their plain PyTorch versions."""

@@ -55,6 +55,14 @@ SIGNATURES = {
         # stream
         "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
     },
+    "gemm.cu": {
+        # x, w, y, ws, counts (NULL with one split), M, N, K, splits, stream
+        "gemm_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    },
+    "rms_norm.cu": {
+        # x, w, y, rows, D, eps, stream
+        "rms_norm_bf16": [_P] * 3 + [_I] * 2 + [_F, _P],
+    },
     "paged_window_attention.cu": {
         # q, k_pages, v_pages, k_scales, v_scales, tables, starts, counts,
         # out, acc, m, l (split partials; NULL when n_chunks is 1), B, C,

@@ -17,7 +17,8 @@ KERNELS = ("flash_attention",
            "ragged_paged_attention_kvsplit", "ragged_paged_attention_kvsplit_int8",
            "paged_decode_attention", "paged_decode_attention_int8",
            "paged_prefill_attention", "paged_prefill_attention_int8",
-           "paged_verify_attention", "paged_verify_attention_int8")
+           "paged_verify_attention", "paged_verify_attention_int8",
+           "gemm", "rms_norm")
 
 # kernel name -> launches since the last reset; a wrapper adds one where
 # it launches its kernel and nowhere else.  A CUDA graph's capture

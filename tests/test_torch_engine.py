@@ -252,7 +252,7 @@ def test_server_models_health_and_bad_requests(server):
     with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/health",
                                 timeout=30) as resp:
         assert json.loads(resp.read())["status"] == "ok"
-    for bad in ({"prompt": "x", "response_format": {"type": "json_object"}},
+    for bad in ({"prompt": "x", "response_format": {"type": "yaml"}},
                 {"prompt": "x", "logit_bias": {"999999": 1.0}}, {"prompt": "x", "n": 2},
                 {"prompt": "x", "min_p": 2.0}):
         with pytest.raises(urllib.error.HTTPError) as err:

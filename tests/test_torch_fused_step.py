@@ -35,8 +35,11 @@ from fusioninfer_tpu_torch.engine import kv_cache as tkv
 from fusioninfer_tpu_torch.engine import model_runner as tmr
 from fusioninfer_tpu_torch.engine import sampler as tsamp
 from fusioninfer_tpu_torch.models import config as tcfg
+from fusioninfer_tpu_torch.models import transformer as ttr
 from fusioninfer_tpu_torch.ops import _build, dispatch
+from fusioninfer_tpu_torch.ops import gemm as tgemm
 from fusioninfer_tpu_torch.ops import paged_attention as tpa
+from fusioninfer_tpu_torch.ops import rms_norm as trn
 
 # f32 end to end; two layers of f32 matmuls summed in different orders
 # (the tolerances of tests/test_torch_model.py)
@@ -330,6 +333,11 @@ def test_engine_fixes_one_walk_cluster_whatever_T(weights, monkeypatch):
     monkeypatch.setattr(dispatch, "use_kernel", lambda *t: True)
     monkeypatch.setattr(_build, "entry", fake_entry)
     monkeypatch.setattr(tpa, "_stream", lambda t: 0)
+    # only the walk's launch is faked: the projections and norms run their
+    # plain versions (test_torch_gemm.py fakes theirs)
+    for mod in (tmr, ttr):
+        monkeypatch.setattr(mod, "matmul", tgemm.reference_matmul)
+        monkeypatch.setattr(mod, "rms_norm", trn.reference_rms_norm)
     # the static shapes of an engine on the card: 8 rows, KV 2, mp 8
     fixed = tpa.pick_cluster_size(8, cfg.n_kv_heads, 8, 132)
     monkeypatch.setattr(teng, "engine_cluster_size",
@@ -357,10 +365,13 @@ def test_engine_fixes_one_walk_cluster_whatever_T(weights, monkeypatch):
 
 @pytest.mark.parametrize("spec_k", [None, 3])
 def test_decode_forwards_run_their_gemms_at_fixed_rows(weights, monkeypatch, spec_k):
-    """A spy on ``qkv_proj``'s row count: every decode-only forward of a
-    per-token engine (the fused step off, so chunk forwards run apart)
-    runs its GEMMs at ``B·W`` rows (W = 1 + speculative_k), with one slot
-    live or all B, and its walk over the live tokens only."""
+    """The GEMM rows a decode forward runs are fixed by its live tokens,
+    nothing else.  A spy on ``qkv_proj``'s row count: every decode-only
+    forward of a per-token engine (the fused step off, so chunk forwards run apart)
+    runs its GEMMs and its walk over the same live tokens, with one slot
+    live or all B: no padding to a fixed row count, since the GEMM and
+    norm kernels keep a row's bits whatever the row count (W = 1 +
+    speculative_k columns a slot, live columns only)."""
     _, ct, _, pt = weights
     gemm_rows, walk_tokens, live_rows, in_decode = [], [], [], [False]
     real_qkv, real_attn = tmr.qkv_proj, tmr._ragged_attn
@@ -397,7 +408,7 @@ def test_decode_forwards_run_their_gemms_at_fixed_rows(weights, monkeypatch, spe
          + [("long", list(range(3, 60)), 2)])
     W = 1 + (spec_k or 0)
     assert 1 in live_rows and 4 in live_rows
-    assert gemm_rows and set(gemm_rows) == {4 * W}
+    assert gemm_rows and gemm_rows == walk_tokens
     assert min(walk_tokens) == 1 and max(walk_tokens) <= 4 * W
     if spec_k is None:
         assert set(walk_tokens) <= {1, 2, 3, 4} and 4 in walk_tokens
