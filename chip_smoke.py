@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero before the result line:
    counts 1, 2, 8, 40, 64, 65, 520 and 3000: against ``x @ w`` and the
    plain norm, every row's bits the same at every count and alone, kernel
    ms (graph replays) against ``torch.matmul`` / ``F.rms_norm`` and the
-   bound; then the attention kernels against their plain PyTorch
+   bound, the GEMM also with its weight cold in L2 (replays cycling
+   through copies of the weight that together exceed it), with each
+   shape's tile, cluster size and splits; then the attention kernels against their plain PyTorch
    versions, on bf16 pages and on int8 pages with scales, at the serve
    path's shapes: the row error
    against a stated bound, kernel / plain / library
@@ -114,6 +116,10 @@ Phases, in order; any failure exits non-zero before the result line:
     its schema, the closed schema's requests must stop, and the unguided
     streams must equal their alone streams; the guided rows' wall ms a
     token and the guided host work a step are printed.
+
+After phase 10 it prints the serve legs' launches by shape: the GEMM by
+weight (K x N), the norm by width, flash by batch and length, the page
+walks by tokens a launch.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -337,6 +343,8 @@ GEMM_ROWS = (1, 2, 8, 40, 64, 65, 520, 3000)
 # the GEMM accumulates in f32 and rounds once; the norm's statistics are f32
 GEMM_ROW_TOL = 2e-3
 NORM_ROW_TOL = 2e-3
+# the weights a cold timing cycles through, together: four times the L2
+COLD_BYTES = 200_000_000
 # qwen3-8b's norms, D by kind, with the rows per token: the layer and final
 # norms over d_model, the q and k norms over head_dim per head
 NORM_SHAPES = {"d_model": (4096, 1), "q_norm": (128, 32), "k_norm": (128, 8)}
@@ -374,12 +382,21 @@ def check_invariant(fn, x_all, gen, what: str) -> None:
                                  "the same row alone")
 
 
+def time_cold(fn, weights, reps: int) -> float:
+    """Median device ms of one ``fn(w)`` with the weight cold in L2: each
+    graph calls ``fn`` once on every copy in ``weights`` (together more
+    than the 50 MB L2), so no call finds its weight left by the last."""
+    return time_graph(lambda: [fn(w) for w in weights], reps=reps, per_graph=1) / len(weights)
+
+
 def check_gemm(gen) -> dict:
     """The GEMM kernel (``ops.gemm.matmul``) at each qwen3-8b projection
     shape and every row count of GEMM_ROWS: against the plain ``x @ w``
     (``check_close``, rows of N), row bits invariant across the row
-    counts, kernel ms (graph replays) against ``torch.matmul`` and the
-    bound, plain ms eager."""
+    counts, kernel ms against ``torch.matmul`` and the bound, both timed
+    warm (graph replays of one weight) and cold (graph replays over
+    copies of the weight that together exceed the L2, as the main path
+    meets each layer's weights); plain ms eager."""
     import torch
 
     from fusioninfer_tpu_torch.ops import gemm
@@ -390,6 +407,8 @@ def check_gemm(gen) -> dict:
         w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5).to(torch.bfloat16)
         x_all = torch.randn((M_max, K), generator=gen, device="cuda").to(torch.bfloat16)
         check_invariant(lambda x: gemm.matmul(x, w), x_all, gen, f"gemm {name}")
+        copies = [w] + [w.clone() for _ in range(-(-COLD_BYTES // (2 * K * N)) - 1)]
+        splits = gemm.split_k(N, K)
         per_m = {}
         for M in GEMM_ROWS:
             x = x_all[:M]
@@ -399,17 +418,27 @@ def check_gemm(gen) -> dict:
             reps = 5 if M * N * K > 1e12 else 20
             ms = time_graph(lambda: gemm.matmul(x, w), reps=reps, per_graph=5)
             lib_ms = time_graph(lambda: torch.matmul(x, w), reps=reps, per_graph=5)
+            cold_ms = time_cold(lambda wc: gemm.matmul(x, wc), copies, reps)
+            cold_lib_ms = time_cold(lambda wc: torch.matmul(x, wc), copies, reps)
             plain_ms = time_events(lambda: gemm.reference_matmul(x, w), reps=reps)
             bound_ms, bound_by = bound(2.0 * M * N * K, 2.0 * (M * K + K * N + M * N))
+            rows, cols, pair = gemm.tile_shape(M, N, K)
             per_m[M] = {"max_abs_err": err, "max_row_err": row_err, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by}
-        out[name] = {"K": K, "N": N, "splits": gemm.split_k(N, K), "rows": per_m}
-        log(f"  gemm {name} K{K} N{N} (splits {gemm.split_k(N, K)}): rows bit-identical at "
-            f"M {', '.join(map(str, GEMM_ROWS))} and alone; kernel / torch.matmul / bound "
-            "ms: " + "; ".join(f"M{M} {r['ms']:.4f} / {r['library_ms']:.4f} / "
-                               f"{r['bound_ms']:.4f}" for M, r in per_m.items()))
-        del w, x_all
+                        "plain_ms": plain_ms, "library_ms": lib_ms, "cold_ms": cold_ms,
+                        "cold_library_ms": cold_lib_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "tile": [rows, cols], "pair": pair,
+                        "cluster": splits * pair, "splits": splits}
+        out[name] = {"K": K, "N": N, "splits": splits, "cold_copies": len(copies),
+                     "rows": per_m}
+        log(f"  gemm {name} K{K} N{N} (splits {splits}): rows bit-identical at "
+            f"M {', '.join(map(str, GEMM_ROWS))} and alone; tile (x2: pairs), cluster, "
+            f"kernel / torch.matmul ms warm, cold ({len(copies)} copies of the weight), "
+            "bound: " + "; ".join(
+                f"M{M} {r['tile'][0]}x{r['tile'][1]}{'x2' if r['pair'] == 2 else ''} "
+                f"CL{r['cluster']} {r['ms']:.4f} / {r['library_ms']:.4f}, "
+                f"{r['cold_ms']:.4f} / {r['cold_library_ms']:.4f}, {r['bound_ms']:.4f}"
+                for M, r in per_m.items()))
+        del w, x_all, copies
     return out
 
 
@@ -1551,6 +1580,7 @@ def serve_leg(engine, prompts, must_launch: tuple[str, ...]) -> dict:
     res = drive_server(engine, prompts)
     wall = time.perf_counter() - t0
     launches = dispatch.launches()
+    shapes = dispatch.launches(by_shape=True)
     missing = [k for k in must_launch if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve path did not launch {missing}: {launches}")
@@ -1564,6 +1594,7 @@ def serve_leg(engine, prompts, must_launch: tuple[str, ...]) -> dict:
         f"({total / wall:.1f} tok/s aggregate); SSE TTFT {[round(t, 4) for t in ttft]} s; "
         f"SSE decode {[round(x, 1) for x in rates]} tok/s per stream; greedy gap {gap:.4f}")
     return {"wall_s": wall, "launches": launches, "greedy_gap": gap, "ttft_s": ttft,
+            "launches_by_shape": shapes,
             "decode_tok_s": rates,
             "requests": [{k: v for k, v in r.items() if k not in ("prompt", "token_ids")}
                          for r in res]}
@@ -1726,6 +1757,7 @@ def serve_prefix_leg(engine, long_len: int, card: str) -> dict:
         server.stop()
     wall = time.perf_counter() - t0
     launches = dispatch.launches()
+    shapes = dispatch.launches(by_shape=True)
     order = ["miss", "hit", "hit 2", "hit 3", "long miss"]
     sched1 = engine.sched.snapshot()
     delta = {k: sched1[k] - sched0[k] for k in ("prefill_tokens", "fused_steps",
@@ -1780,6 +1812,7 @@ def serve_prefix_leg(engine, long_len: int, card: str) -> dict:
     for name, ms in prof["top_kernels_ms_per_step"].items():
         log(f"    {ms:8.4f} ms/step  {name}")
     return {"wall_s": wall, "launches": launches, "greedy_gap": gap, "ttft_s": ttft,
+            "launches_by_shape": shapes,
             "prompt_tokens": lens, "calibrated_budget": calibrated,
             "decoding_when_long_sent": decoding,
             "hit_rate": engine.prefix_cache_hit_rate(), "hit_tokens": hit,
@@ -1886,6 +1919,7 @@ def serve_spec_requests(engine, prompts, sampling: dict, max_tokens: int) -> dic
         if r["tokens"] != max_tokens or r["finish"] != "length":
             raise AssertionError(f"request {i}: {r['tokens']} tokens, finish {r['finish']!r}")
     launches = dispatch.launches()
+    shapes = dispatch.launches(by_shape=True)
     sched1 = engine.sched.snapshot()
     delta = {k: sched1[k] - sched0[k] for k in ("steps", "weight_passes", "decode_tokens",
                                                 "fused_steps")}
@@ -1895,6 +1929,7 @@ def serve_spec_requests(engine, prompts, sampling: dict, max_tokens: int) -> dic
         raise AssertionError(f"{walk} walk launches for {ragged_fwd} ragged forwards of "
                              f"{engine.cfg.n_layers} layers")
     return {"wall_s": wall, "launches": launches, "sched_delta": delta,
+            "launches_by_shape": shapes,
             "ragged_forwards": int(ragged_fwd),
             "spec_proposed": engine.spec_proposed_total - spec0[0],
             "spec_accepted": engine.spec_accepted_total - spec0[1],
@@ -2383,13 +2418,15 @@ def serve_burst_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
 
     from fusioninfer_tpu_torch.ops import dispatch
 
-    out: dict = {"streams": {}, "launches": {}, "beside_chunk_steps": {}}
+    out: dict = {"streams": {}, "launches": {}, "launches_by_shape": {},
+                 "beside_chunk_steps": {}}
     for kind in ("burst", "split", "fused"):
         t0 = time.perf_counter()
         engine = make_engine(kind)
         dispatch.reset_launches()
         cases = {case: serve_a1_case(engine, case) for case in A1_CASES}
         out["launches"][kind] = dispatch.launches()
+        out["launches_by_shape"][kind] = dispatch.launches(by_shape=True)
         out["streams"][kind] = {case: res[0] for case, res in cases.items()}
         out["beside_chunk_steps"][kind] = cases["chunk"][1]
         if cases["chunk"][1] < 2:
@@ -2514,9 +2551,11 @@ def serve_burst_defaults(params, card: str) -> dict:
         if r["tokens"] != MAX_TOKENS or r["finish"] != "length":
             raise AssertionError(f"defaults leg: {r['tokens']} tokens, finish {r['finish']!r}")
     launches = dispatch.launches()
+    shapes = dispatch.launches(by_shape=True)
     gap = check_greedy(engine, [cold, *results], paged_prompt=True)
     snap = engine.sched.snapshot()
     out = {"token_budget": engine.token_budget, "launches": launches, "greedy_gap": gap,
+           "launches_by_shape": shapes,
            "cold_ttft_s": cold["ttft_s"], "cold_second_token_s": cold["second_token_s"],
            "capture_s": capture_s,
            "captures": [dict(vars(c)) for c in engine.bursts.captures],
@@ -2643,6 +2682,7 @@ def serve_guided_leg(engine, card: str) -> dict:
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"guided leg: {errors or 'a request did not finish'}")
     launches = dispatch.launches()
+    shapes = dispatch.launches(by_shape=True)
     steps = engine.sched.steps_total - steps0
     for i in range(len(GUIDED_PLAIN)):
         a, b = results[f"alone{i}"]["token_ids"], results[f"beside{i}"]["token_ids"]
@@ -2679,6 +2719,7 @@ def serve_guided_leg(engine, card: str) -> dict:
         f"{len(GUIDED_PLAIN)} unguided streams beside them equal their alone streams; "
         f"launches {launches}")
     return {"wall_s": wall, "steps": steps, "outcomes": outcomes, "launches": launches,
+            "launches_by_shape": shapes,
             "guided_ms_per_token": ms_tok, "guided_host_ms_per_step": host_ms,
             "sched": engine.sched.snapshot()}
 
@@ -2700,7 +2741,7 @@ def main() -> int:
     from fusioninfer_tpu_torch.engine.engine import NativeEngine
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
-    from fusioninfer_tpu_torch.ops import _build
+    from fusioninfer_tpu_torch.ops import _build, dispatch
     from fusioninfer_tpu_torch.ops.paged_attention import engine_cluster_size
 
     t_start = time.perf_counter()
@@ -2931,16 +2972,47 @@ def main() -> int:
     legs = [serve4, serve5, serve6, serve6s, *serve7.values(),
             *(leg[side][part] for leg in serve8.values() for side in ("on", "off")
               for part in ("greedy", "sampled") if part in leg[side]),
-            *({"launches": v} for leg in serve9.values() if "streams" in leg
-              for v in leg["launches"].values()),
+            *({"launches": leg["launches"][kind],
+               "launches_by_shape": leg["launches_by_shape"][kind]}
+              for leg in serve9.values() if "streams" in leg for kind in leg["launches"]),
             serve9["cli_defaults"], serve10]
 
     def served(name):  # launches over every serve leg
         return sum(leg["launches"][name] for leg in legs)
 
+    def served_by_shape(name):  # {shape: launches} over every serve leg
+        total: dict[str, int] = {}
+        for leg in legs:
+            for shape, n in dispatch.by_shape(leg["launches_by_shape"], name).items():
+                total[shape] = total.get(shape, 0) + n
+        return total
+
     for name in ("gemm", "rms_norm"):
         if served(name) == 0:
             raise AssertionError(f"the serve legs launched no {name} kernel")
+    shapes = {name: served_by_shape(name) for name in dispatch.KERNELS}
+    for name in ("gemm", "rms_norm"):
+        if sum(shapes[name].values()) != served(name):
+            raise AssertionError(f"{name}: launches by shape {shapes[name]} do not add up to "
+                                 f"{served(name)}")
+    gemm_names = {f"{K}x{N}": name for name, (K, N) in GEMM_SHAPES.items()}
+    log("  launches over phases 4-10 by shape: gemm " + ", ".join(
+        f"{gemm_names.get(k, k)} {n}" for k, n in sorted(shapes["gemm"].items()))
+        + "; rms_norm " + ", ".join(f"D{k} {n}" for k, n in sorted(shapes["rms_norm"].items())))
+    # the page walks by tokens a launch: decode rows (T <= 8), windows and
+    # short steps (9-64), fused steps and long suffixes (> 64)
+    walk_classes = {}
+    for name in dispatch.KERNELS:
+        if name.startswith("ragged_paged_attention"):
+            by_t = {int(k[1:]): n for k, n in shapes[name].items()}
+            walk_classes[name] = {
+                "T<=8": sum(n for t, n in by_t.items() if t <= 8),
+                "T9-64": sum(n for t, n in by_t.items() if 8 < t <= 64),
+                "T>64": sum(n for t, n in by_t.items() if t > 64),
+                "T40": by_t.get(40, 0), "T513-520": sum(n for t, n in by_t.items()
+                                                        if 512 < t <= 520)}
+    log(f"  page-walk launches by tokens a launch: {walk_classes}")
+    log(f"  flash launches by shape: {shapes['flash_attention']}")
 
     kernels = [
         kernel_row("flash_attention", "flash_attention.cu", "flash_attention.py:150",
@@ -2997,7 +3069,8 @@ def main() -> int:
                                   for (sp, q8), r in spec_shape.items()},
                    "spec_bits_rows": spec_bits, "spec_cluster": spec_cl,
                    "spec_legs": serve8, "burst_legs": serve9, "guided_leg": serve10,
-                   "gemm": gemms, "rms_norm": norms,
+                   "gemm": gemms, "rms_norm": norms, "launches_by_shape": shapes,
+                   "walk_launches_by_tokens": walk_classes,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[11/11] done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

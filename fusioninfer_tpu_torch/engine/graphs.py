@@ -157,23 +157,25 @@ class BurstRunner:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = dispatch.launches()
+        before = dispatch.launches(by_shape=True)
         try:
             with torch.cuda.graph(graph, pool=self._pool,
                                   capture_error_mode="thread_local"):
                 sampled, next_ctl = self._burst(self.ctl_i, self.ctl_f, self.tables,
                                                 span, mode)
         finally:
-            after = dispatch.launches()
+            after = dispatch.launches(by_shape=True)
             dispatch.restore_launches(before)
         torch.cuda.synchronize(self.device)
-        per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        per_replay = {k: n - before.get(k, 0) for k, n in after.items()
+                      if n != before.get(k, 0)}
         cap = Capture(span, mode, time.perf_counter() - t0,
                       torch.cuda.memory_reserved(self.device) - reserved0)
         self.captures.append(cap)
         logger.info("captured the %s decode burst of span %d in %.2f s "
                     "(pool +%d bytes, %d kernel launches a replay)", mode, span,
-                    cap.seconds, cap.pool_bytes, sum(per_replay.values()))
+                    cap.seconds, cap.pool_bytes,
+                    sum(n for k, n in per_replay.items() if k in dispatch.KERNELS))
         return graph, sampled, next_ctl, per_replay
 
 

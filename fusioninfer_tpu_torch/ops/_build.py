@@ -56,8 +56,9 @@ SIGNATURES = {
         "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
     },
     "gemm.cu": {
-        # x, w, y, ws, counts (NULL with one split), M, N, K, splits, stream
-        "gemm_bf16": [_P] * 5 + [_I] * 4 + [_P],
+        # x, w, y, M, N, K, splits (the cluster's K ranks), tile_rows,
+        # tile_cols, pair (1, or 2 row tiles sharing a weight tile), stream
+        "gemm_bf16": [_P] * 3 + [_I] * 7 + [_P],
     },
     "rms_norm.cu": {
         # x, w, y, rows, D, eps, stream

@@ -21,10 +21,13 @@ KERNELS = ("flash_attention",
            "gemm", "rms_norm")
 
 # kernel name -> launches since the last reset; a wrapper adds one where
-# it launches its kernel and nowhere else.  A CUDA graph's capture
-# launches nothing and its replay runs no wrapper: the graph runner
-# (engine/graphs.py) takes back what the wrappers counted during the
-# capture and adds it again at each replay, which launches those kernels
+# it launches its kernel and nowhere else, and one under
+# ``<name>[<shape>]`` for the shape it launched at (the GEMM's ``KxN``,
+# the norm's ``D``, flash's ``B S``, the walks' tokens ``T``).  A CUDA
+# graph's capture launches nothing and its replay runs no wrapper: the
+# graph runner (engine/graphs.py) takes back what the wrappers counted
+# during the capture and adds it again at each replay, which launches
+# those kernels
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -39,26 +42,40 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on devices {sorted(kinds)}: expected all cuda or all cpu")
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: str | None = None) -> None:
     LAUNCHES[name] += 1
+    if shape is not None:
+        key = f"{name}[{shape}]"
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 def count_launches(counts: dict[str, int]) -> None:
-    """Add a replayed graph's launches, ``{kernel name: launches}``."""
+    """Add a replayed graph's launches, ``{counter: launches}``."""
     for name, n in counts.items():
-        LAUNCHES[name] += n
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def restore_launches(counts: dict[str, int]) -> None:
-    """Set every count back to ``counts`` (what :func:`launches` gave
-    before a capture)."""
+    """Set every count back to ``counts`` (what ``launches(by_shape=True)``
+    gave before a capture)."""
+    LAUNCHES.clear()
     LAUNCHES.update(counts)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.clear()
+    LAUNCHES.update(dict.fromkeys(KERNELS, 0))
 
 
-def launches() -> dict[str, int]:
-    return dict(LAUNCHES)
+def launches(by_shape: bool = False) -> dict[str, int]:
+    """Launches by kernel; with ``by_shape``, also by ``<name>[<shape>]``."""
+    if by_shape:
+        return dict(LAUNCHES)
+    return {name: LAUNCHES[name] for name in KERNELS}
+
+
+def by_shape(counts: dict[str, int], name: str) -> dict[str, int]:
+    """``{shape: launches}`` of kernel ``name`` in ``counts`` (a
+    ``launches(by_shape=True)``)."""
+    head = name + "["
+    return {k[len(head):-1]: n for k, n in counts.items() if k.startswith(head)}

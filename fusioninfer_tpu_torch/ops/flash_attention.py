@@ -86,5 +86,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, S, H, KV, Hd, Hd ** -0.5, int(causal), window or 0, stream)
     _build.check(err, "flash_attention_bf16")
-    dispatch.count_launch("flash_attention")
+    dispatch.count_launch("flash_attention", f"B{B} S{S}")
     return out

@@ -600,7 +600,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_starts,
              T, R, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
              window or 0, cluster, _stream(q))
     _build.check(err, "ragged_paged_attention")
-    dispatch.count_launch(_variant("ragged_paged_attention", ks))
+    dispatch.count_launch(_variant("ragged_paged_attention", ks), f"T{T}")
     return out
 
 
@@ -633,7 +633,7 @@ def ragged_paged_attention_kvsplit(q, k_pages, v_pages, page_tables,
              T, R, KV, H // KV, Hd, n_pages, ps, mp, li, Hd ** -0.5,
              window or 0, -(-mp // KV_SPLIT_CHUNKS), _stream(q))
     _build.check(err, "ragged_paged_attention_kvsplit")
-    dispatch.count_launch(_variant("ragged_paged_attention_kvsplit", ks))
+    dispatch.count_launch(_variant("ragged_paged_attention_kvsplit", ks), f"T{T}")
     return out
 
 

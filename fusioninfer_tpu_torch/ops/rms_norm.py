@@ -65,5 +65,5 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     err = fn(x2.data_ptr(), weight.data_ptr(), y.data_ptr(), x2.shape[0], D, float(eps),
              stream)
     _build.check(err, "rms_norm_bf16")
-    dispatch.count_launch("rms_norm")
+    dispatch.count_launch("rms_norm", str(D))
     return y.reshape(x.shape)

@@ -4,14 +4,14 @@
   their plain versions: ``x @ w`` and the JAX package's ``rms_norm``, at
   qwen3-tiny's projection and norm widths, held against the JAX
   functions on the same numpy inputs.
-* ``split_k``, the kernel's split of K, is a function of the weight's
-  shape alone: every range holds a K block, the count stays within the
-  kernel's cap, and qwen3-8b's projections get the splits the kernel was
-  measured with.
+* ``split_k``, the kernel's split of K (also its cluster size), is a
+  function of the weight's shape alone: every range holds a K block, the
+  count stays within the kernel's cluster cap, and qwen3-8b's
+  projections get the splits and tiles the kernel was measured with; the
+  K ranges and their fold order do not move with the row count.
 * With the launch faked, the wrappers hand the C entries the pointers,
-  the row count, the split and (for a split) a workspace of
-  ``splits · M · N`` floats and the tile counters, count one launch each,
-  and refuse what the kernels do not take.
+  the row count, the split and the tile, count one launch each (in
+  total and by shape), and refuse what the kernels do not take.
 * The transformer routes every projection and norm through them: a
   forward of qwen3-tiny counts one GEMM per projection and one norm per
   norm when the launches are faked.
@@ -29,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from fusioninfer_tpu.models import config as jcfg
 from fusioninfer_tpu.models import transformer as jtr
@@ -47,9 +49,25 @@ TINY_GEMMS = {"wq": (TINY.d_model, TINY.n_heads * TINY.head_dim),
               "lm_head": (TINY.d_model, TINY.vocab_size)}
 TINY_NORMS = (TINY.d_model, TINY.head_dim)
 ROWS = (1, 2, 8, 40, 65)
-# qwen3-8b's projections (K, N) and the splits its kernel timings were taken at
-QWEN3_8B_SPLITS = {(4096, 4096): 4, (4096, 1024): 16, (4096, 12288): 1,
-                   (12288, 4096): 4, (4096, 151936): 1}
+# qwen3-8b's projections (K, N) and the splits (the clusters' K ranks) its
+# kernel timings were taken at
+QWEN3_8B_SPLITS = {(4096, 4096): 2, (4096, 1024): 8, (4096, 12288): 1,
+                   (12288, 4096): 2, (4096, 151936): 1}
+# the tile (rows, columns, pair) each qwen3-8b shape gets at the row counts
+# the serve path gives it: decode rows, a spec window, one past a 64-row
+# tile, a fused step and a long prefill
+QWEN3_8B_TILES = {
+    (4096, 4096): {8: (64, 64, 1), 40: (64, 64, 1), 65: (128, 64, 1),
+                   520: (128, 256, 2), 3000: (128, 256, 1)},
+    (4096, 1024): {8: (64, 128, 1), 40: (64, 128, 1), 65: (128, 128, 1),
+                   520: (128, 256, 1), 3000: (128, 256, 1)},
+    (4096, 12288): {8: (64, 64, 1), 40: (64, 64, 1), 65: (128, 128, 1),
+                    520: (128, 256, 1), 3000: (128, 256, 2)},
+    (12288, 4096): {8: (64, 64, 1), 40: (64, 64, 1), 65: (128, 64, 1),
+                    520: (128, 256, 2), 3000: (128, 256, 1)},
+    (4096, 151936): {8: (64, 128, 1), 40: (64, 128, 1), 65: (128, 256, 1),
+                     520: (128, 256, 1), 3000: (128, 256, 2)},
+}
 
 
 @pytest.fixture(autouse=True)
@@ -116,12 +134,17 @@ def test_split_k_ranges_are_whole_and_nonempty(n):
 def test_split_cap_matches_the_kernel():
     src = (_build.CSRC / "gemm.cu").read_text()
     assert f"constexpr int MAX_SPLITS = {gemm.MAX_SPLITS};" in src
+    assert f"constexpr int BK = {gemm.TILE_K};" in src
     assert "static constexpr int BM = 64 * NC;" in src
     assert "BLOCKS_PER_SM = NC == 1 ? 2 : 1;" in src
-    assert re.search(r"if \(M <= 64\) return launch<1>", src)
-    assert gemm.tile_rows(64) == (64, 2) and gemm.tile_rows(65) == (128, 1)
-    assert (f"constexpr int BN = {gemm.TILE_N};" in src
-            and f"constexpr int BK = {gemm.TILE_K};" in src)
+    for rows, cols in gemm.TILES:  # every tile the wrapper picks has a launch
+        assert re.search(rf"if \(tile_rows == {rows} && tile_cols == {cols}\)[^;]*"
+                         rf"launch<{rows // 64}, {cols}, [12]>", src)
+    assert min(c for _, c in gemm.TILES) == gemm.TILE_N
+    assert gemm.tile_shape(gemm.SMALL_M, 4096, 4096)[0] == 64
+    assert gemm.tile_shape(gemm.SMALL_M + 1, 4096, 4096)[0] == 128
+    # the fold's column slices: every tile splits evenly at the cap
+    assert all(c % (4 * gemm.MAX_SPLITS) == 0 for _, c in gemm.TILES)
 
 
 @pytest.fixture
@@ -140,7 +163,6 @@ def faked(monkeypatch):
     monkeypatch.setattr(_build, "entry", fake_entry)
     monkeypatch.setattr(gemm, "_stream", lambda t: 0)
     monkeypatch.setattr(trn, "_stream", lambda t: 0)
-    monkeypatch.setattr(gemm, "_COUNTS", {})
     dispatch.reset_launches()
     yield calls
     dispatch.reset_launches()
@@ -155,42 +177,103 @@ def test_gemm_wrapper_hands_the_entry_its_operands(faked, K, N, M):
     ((source, fn, args),) = faked
     assert (source, fn) == ("gemm.cu", "gemm_bf16")
     assert len(args) == len(_build.SIGNATURES[source][fn])
-    xp, wp, yp, ws, counts, m, n, k, splits, stream = args
+    xp, wp, yp, m, n, k, splits, rows, cols, pair, stream = args
     assert (xp, wp, yp) == (x.data_ptr(), w.data_ptr(), y.data_ptr())
     assert (m, n, k, splits, stream) == (M, N, K, gemm.split_k(N, K), 0)
+    assert (rows, cols, pair) == gemm.tile_shape(M, N, K) and (rows, cols) in gemm.TILES
+    assert pair in (1, 2) and splits * pair <= gemm.MAX_SPLITS
     assert y.shape == (M, 1, N) and y.dtype == torch.bfloat16
-    tiles = -(-M // gemm.tile_rows(M)[0]) * -(-N // 128)
-    if gemm.block_per_range(M, N, K):  # a block per range, folded in memory
-        buf = gemm._COUNTS[x.device]
-        assert splits > 1 and counts == buf.data_ptr() and ws != 0
-        assert buf.numel() >= tiles and not buf.any()
-    else:  # one range, or every range of a tile in one block
-        assert ws == 0 and counts == 0
     assert dispatch.launches()["gemm"] == 1 and sum(dispatch.launches().values()) == 1
+    assert dispatch.launches(by_shape=True)[f"gemm[{K}x{N}]"] == 1
 
 
-@pytest.mark.parametrize("K,N,M,per_range", [
-    (4096, 4096, 8, True), (4096, 1024, 40, True), (12288, 4096, 520, True),
-    (4096, 1024, 520, False), (4096, 4096, 3000, False), (4096, 1024, 3000, False),
-    (4096, 12288, 8, False)])
-def test_block_per_range_by_waves(K, N, M, per_range):
-    """Decode rows spread a tile's K ranges over blocks; enough tiles to
-    fill the card keep them in one block; one range never splits."""
-    assert gemm.block_per_range(M, N, K) == per_range
+@pytest.mark.parametrize("kn", sorted(QWEN3_8B_TILES))
+@pytest.mark.parametrize("M", [8, 40, 65, 520, 3000])
+def test_tile_and_cluster_of_the_qwen3_8b_projections(kn, M):
+    """Each projection's tile and pairing at the serve path's row counts,
+    and a cluster of ``split_k`` K ranks (times the pair) that the card's
+    clusters hold and the tile's columns fold evenly."""
+    K, N = kn
+    rows, cols, pair = gemm.tile_shape(M, N, K)
+    assert (rows, cols, pair) == QWEN3_8B_TILES[kn][M]
+    s = gemm.split_k(N, K)
+    assert 1 <= s * pair <= gemm.MAX_SPLITS and cols % (4 * s) == 0
+    assert pair == 1 or (rows == 128 and M > 128)
 
 
-def test_gemm_wrapper_sizes_the_workspace(faked, monkeypatch):
-    sizes = []
-    real_empty = torch.empty
+def k_ranges(n, k):
+    """The K ranges ``[lo, hi)`` of a ``[k, n]`` weight in the order the
+    kernel adds their partials (rank order): ``split_k(n, k)`` ranges of
+    ``ceil(kb / splits)`` blocks of ``TILE_K`` (csrc/gemm.cu's ``per``),
+    the last one shorter."""
+    s, kb = gemm.split_k(n, k), -(-k // gemm.TILE_K)
+    per = -(-kb // s)
+    return [(r * per * gemm.TILE_K, min(k, (r + 1) * per * gemm.TILE_K)) for r in range(s)]
 
-    def spy(shape, **kw):
-        sizes.append((tuple(shape), kw.get("dtype")))
-        return real_empty(shape, **kw)
 
-    monkeypatch.setattr(torch, "empty", spy)
-    gemm.matmul(torch.zeros((40, 4096), dtype=torch.bfloat16),
-                torch.zeros((4096, 1024), dtype=torch.bfloat16))
-    assert ((16, 40, 1024), torch.float32) in sizes
+@settings(max_examples=25, deadline=None)
+@given(n=st.integers(1, 512).map(lambda v: 8 * v), k=st.integers(1, 1024).map(lambda v: 8 * v),
+       ms=st.lists(st.integers(1, 700), min_size=2, max_size=4),
+       big_ms=st.lists(st.integers(701, 6000), max_size=3))
+def test_k_ranges_and_fold_order_do_not_move_with_m(n, k, ms, big_ms):
+    """At a given (N, K), every row count hands the kernel the same split,
+    so the same contiguous, non-empty K ranges of whole 64-deep blocks,
+    folded in rank order, each at least MIN_SPLIT_BLOCKS deep when split;
+    only the tile and pairing (which move no bits) follow M."""
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dispatch, "use_kernel", lambda *t: True)
+        mp.setattr(_build, "entry", lambda source, fn: (lambda *a: calls.append(a) or 0))
+        mp.setattr(gemm, "_stream", lambda t: 0)
+        w = torch.zeros((k, n), dtype=torch.bfloat16)
+        for m in ms:
+            gemm.matmul(torch.zeros((m, k), dtype=torch.bfloat16), w)
+    dispatch.reset_launches()
+    assert {a[6] for a in calls} == {gemm.split_k(n, k)}
+    ranges = k_ranges(n, k)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo < hi and lo % gemm.TILE_K == 0 for lo, hi in ranges)
+    if len(ranges) > 1:
+        assert all(hi - lo >= gemm.MIN_SPLIT_BLOCKS * gemm.TILE_K for lo, hi in ranges[:-1])
+    tiles = [a[7:10] for a in calls] + [gemm.tile_shape(m, n, k) for m in big_ms]
+    for rows, cols, pair in tiles:
+        assert (rows, cols) in gemm.TILES and cols % (4 * len(ranges)) == 0
+        assert len(ranges) * pair <= gemm.MAX_SPLITS and (pair == 1 or rows == 128)
+
+
+@pytest.mark.parametrize("splits", [16, 3, 0])
+def test_gemm_wrapper_refuses_a_split_the_cluster_cannot_hold(faked, monkeypatch, splits):
+    """More ranks than the kernel's cluster cap, or ranks that do not
+    divide the tile's columns into whole quads, never reach the entry."""
+    monkeypatch.setattr(gemm, "split_k", lambda n, k: splits)
+    with pytest.raises(ValueError, match="K ranges do not fit"):
+        gemm.matmul(torch.zeros((8, 4096), dtype=torch.bfloat16),
+                    torch.zeros((4096, 1024), dtype=torch.bfloat16))
+    assert not faked and dispatch.launches()["gemm"] == 0
+
+
+def test_launches_are_counted_by_shape_beside_the_totals(faked):
+    """The wrappers count each launch in total and under its shape, in
+    the one dict that graph replays add to; a reset drops the shapes."""
+    for m, (k, n) in ((8, (64, 128)), (3, (64, 128)), (5, (128, 64))):
+        gemm.matmul(torch.zeros((m, k), dtype=torch.bfloat16),
+                    torch.zeros((k, n), dtype=torch.bfloat16))
+    for shape in ((2, 64), (4, 32, 128)):
+        trn.rms_norm(torch.zeros(shape, dtype=torch.bfloat16),
+                     torch.ones(shape[-1], dtype=torch.bfloat16), 1e-6)
+    counts = dispatch.launches(by_shape=True)
+    assert dispatch.by_shape(counts, "gemm") == {"64x128": 2, "128x64": 1}
+    assert dispatch.by_shape(counts, "rms_norm") == {"64": 1, "128": 1}
+    assert dispatch.launches()["gemm"] == 3 and dispatch.launches()["rms_norm"] == 2
+    assert set(dispatch.launches()) == set(dispatch.KERNELS)
+    before = dispatch.launches(by_shape=True)
+    dispatch.count_launches({"gemm": 1, "gemm[64x128]": 1, "gemm[8x8]": 1})  # a replay
+    assert dispatch.launches(by_shape=True)["gemm[64x128]"] == 3
+    dispatch.restore_launches(before)
+    assert dispatch.launches(by_shape=True) == before
+    dispatch.reset_launches()
+    assert dispatch.launches(by_shape=True) == dict.fromkeys(dispatch.KERNELS, 0)
 
 
 def test_gemm_wrapper_refuses_what_the_kernel_does_not_take(faked):
