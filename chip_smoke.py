@@ -15,7 +15,14 @@ Phases, in order; any failure exits non-zero before the result line:
    ms (graph replays) against ``torch.matmul`` / ``F.rms_norm`` and the
    bound, the GEMM also with its weight cold in L2 (replays cycling
    through copies of the weight that together exceed it), with each
-   shape's tile, cluster size and splits; then the attention kernels against their plain PyTorch
+   shape's tile, cluster size and splits; the norm fused into its
+   neighbours at the same row counts, the residual add + norm
+   (``add_rms_norm``) at d_model and the q/k norms + RoPE + K/V page
+   write (``qk_norm_rope_kv``) on bf16 and int8 pages: bit for bit the
+   unfused chain they replace (the norm kernel, torch's add, ``rotate``,
+   ``scatter_kv``), every row the same at every count and alone, within
+   the bound of the plain versions, kernel ms against the chain's and the
+   bound; then the attention kernels against their plain PyTorch
    versions, on bf16 pages and on int8 pages with scales, at the serve
    path's shapes: the row error
    against a stated bound, kernel / plain / library
@@ -57,7 +64,8 @@ Phases, in order; any failure exits non-zero before the result line:
    length, the served tokens must be the greedy choice of a plain
    full-sequence forward that runs none of the kernels, and the
    flash-prefill and split-KV decode kernels must have launched; then
-   the decode-step profile, which must show one page-walk kernel,
+   the decode-step profile (wall, CPU and device ms, kernel launches a
+   step, the top kernels), which must show one page-walk kernel,
    launched once per layer;
 5. the same weights at ``--max-model-len 2048``: decode takes the single
    page walk, whose kernel must have launched; then the decode-step
@@ -101,11 +109,12 @@ Phases, in order; any failure exits non-zero before the result line:
    every case, and all three the same as each other; on the 4096 leg one
    burst's
    graph replay must equal eager ``decode_burst`` bit for bit; the wall,
-   thread-CPU and device ms per token of each of 8 streams decoding in
-   bursts (pipelined, and on the 4096 leg unpipelined) and per token, the
-   graphs' capture seconds and pool bytes, and on the 4096 leg a
-   decode-only forward's device ms at 8 and 2 live rows through the GEMM
-   and norm kernels and through ``torch.matmul`` (A B B A); then ``engine
+   thread-CPU and device ms and kernel launches per token of each of 8
+   streams decoding in bursts (pipelined, and on the 4096 leg
+   unpipelined) and per token, the graphs' capture seconds and pool
+   bytes, and on the 4096 leg one forward's device ms (decode at 8 and 2
+   live rows, a fused step, a prefill) through the kernels, with the
+   unfused norm chain and through ``torch.matmul`` (K C L L C K); then ``engine
    serve`` with the CLI defaults through the server: a cold request's
    TTFT (it carries the captures), four SSE requests' TTFT and decode
    tok/s per stream, the burst counters, and the greedy check;
@@ -118,8 +127,9 @@ Phases, in order; any failure exits non-zero before the result line:
     token and the guided host work a step are printed.
 
 After phase 10 it prints the serve legs' launches by shape: the GEMM by
-weight (K x N), the norm by width, flash by batch and length, the page
-walks by tokens a launch.
+weight (K x N), the norms by width (the fused q/k kernel by heads and
+page type), flash by batch and length, the page walks by tokens a
+launch.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -348,6 +358,8 @@ COLD_BYTES = 200_000_000
 # qwen3-8b's norms, D by kind, with the rows per token: the layer and final
 # norms over d_model, the q and k norms over head_dim per head
 NORM_SHAPES = {"d_model": (4096, 1), "q_norm": (128, 32), "k_norm": (128, 8)}
+# the kernels every projection and norm of a forward launches
+PROJECTION_KERNELS = ("gemm", "rms_norm", "add_rms_norm", "qk_norm_rope_kv")
 # neither kernel replaces a Pallas kernel: the JAX lines whose XLA ops they
 # take over (swiglu's gate product, rms_norm) stand in the "replaces" field
 JAX_DOT_LINE = 60
@@ -368,18 +380,23 @@ def bit_rows(M: int, gen) -> list[int]:
 def check_invariant(fn, x_all, gen, what: str) -> None:
     """``fn(x)`` at every row count of GEMM_ROWS must give each row the
     bits the largest count gives it, and the largest count each anchor
-    row's bits of a one-row call."""
+    row's bits of a one-row call (:func:`check_rows_invariant`)."""
+    check_rows_invariant(lambda lo, hi: fn(x_all[lo:hi]), x_all.shape[0], gen, what)
+
+
+def check_rows_invariant(run, M: int, gen, what: str) -> None:
+    """``run(lo, hi)`` (rows lo..hi-1 → one output row each) at every row
+    count of GEMM_ROWS must give each row the bits the largest count gives
+    it, and the largest count each anchor row's bits of a one-row call."""
     import torch
 
-    full = fn(x_all)
-    for M in GEMM_ROWS[:-1]:
-        if not torch.equal(fn(x_all[:M]), full[:M]):
-            raise AssertionError(f"{what}: rows at M {M} differ from the same rows at "
-                                 f"M {x_all.shape[0]}")
-    for r in bit_rows(x_all.shape[0], gen):
-        if not torch.equal(fn(x_all[r: r + 1])[0], full[r]):
-            raise AssertionError(f"{what}: row {r} at M {x_all.shape[0]} differs from "
-                                 "the same row alone")
+    full = run(0, M)
+    for m in GEMM_ROWS[:-1]:
+        if not torch.equal(run(0, m), full[:m]):
+            raise AssertionError(f"{what}: rows at M {m} differ from the same rows at M {M}")
+    for r in bit_rows(M, gen):
+        if not torch.equal(run(r, r + 1)[0], full[r]):
+            raise AssertionError(f"{what}: row {r} at M {M} differs from the same row alone")
 
 
 def time_cold(fn, weights, reps: int) -> float:
@@ -481,6 +498,184 @@ def check_norm(gen) -> dict:
                 f"M{M} {r['ms']:.4f} / {r['library_ms']} / {r['bound_ms']:.4f}"
                 for M, r in per_m.items()))
     return out
+
+
+# the fused q/k kernel rounds q and k to bf16 between the norm and RoPE:
+# where the plain norm's f32 statistics differ from the kernel's in a last
+# bit, an input moves by one bf16 ulp (2^-8 of values up to ~4 rms), which
+# the rotation carries to the output
+QK_ROW_TOL = 2e-2
+# the fused kernels' shapes at qwen3-8b: the residual stream's width, and
+# q / k / v heads a token
+ADD_NORM_D = 4096
+QK_HEADS = (32, 8, 128)
+# the JAX lines whose XLA ops the fused kernels take over: the residual add
+# before the MLP norm (layer_forward) and RoPE (qkv_proj)
+JAX_ADD_LINE = 331
+JAX_ROPE_LINE = 247
+
+
+def chain_add_rms_norm(x, delta, w, eps):
+    """The unfused chain ``add_rms_norm`` replaces: torch's bf16 add, then
+    the RMSNorm kernel (the yardstick; the port never calls it)."""
+    from fusioninfer_tpu_torch.ops import rms_norm as rn
+
+    s = x + delta
+    return s, rn.rms_norm(s, w, eps)
+
+
+def chain_qk_norm_rope_kv(q, k, v, q_norm, k_norm, rope, eps, *, cache=None, layer=0,
+                          write_page=None, write_slot=None, k_out=True):
+    """The unfused chain ``qk_norm_rope_kv`` replaces: the RMSNorm kernel on
+    q and k, ``rotate``, ``scatter_kv`` (the yardstick)."""
+    from fusioninfer_tpu_torch.ops import rms_norm as rn
+
+    if q_norm is not None:
+        q, k = rn.rms_norm(q, q_norm, eps), rn.rms_norm(k, k_norm, eps)
+    q, k = rn.rotate(q, rope), rn.rotate(k, rope)
+    if cache is not None:
+        rn.scatter_kv(cache, layer, k, v, write_page, write_slot, head_axis=k.dim() - 2)
+    return q, (k if k_out else None)
+
+
+def check_add_norm(gen) -> dict:
+    """``add_rms_norm`` at d_model over every row count of GEMM_ROWS: s and
+    h bit for bit the unfused chain's (torch's add, the norm kernel), each
+    row's bits the same at every count and alone, h within ``check_close``
+    of the plain version; kernel ms against the chain's and the bound."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import rms_norm as rn
+
+    D, eps = ADD_NORM_D, 1e-6
+    M_max = max(GEMM_ROWS)
+    w = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(torch.bfloat16)
+    x_all = torch.randn((M_max, D), generator=gen, device="cuda").to(torch.bfloat16)
+    d_all = torch.randn((M_max, D), generator=gen, device="cuda").to(torch.bfloat16)
+    check_rows_invariant(lambda lo, hi: torch.cat(
+        rn.add_rms_norm(x_all[lo:hi], d_all[lo:hi], w, eps), dim=1), M_max, gen,
+        "add_rms_norm")
+    per_m = {}
+    for M in GEMM_ROWS:
+        x, d = x_all[:M], d_all[:M]
+        s, h = rn.add_rms_norm(x, d, w, eps)
+        cs, ch = chain_add_rms_norm(x, d, w, eps)
+        if not (torch.equal(s, cs) and torch.equal(h, ch)):
+            raise AssertionError(f"add_rms_norm M{M}: not the unfused chain's bits")
+        ps_, ph = rn.reference_add_rms_norm(x, d, w, eps)
+        if not torch.equal(s, ps_):
+            raise AssertionError(f"add_rms_norm M{M}: s is not the plain add's")
+        err, row_err = check_close(h, ph, f"add_rms_norm M{M}", NORM_ROW_TOL, D)
+        ms = time_graph(lambda: rn.add_rms_norm(x, d, w, eps))
+        chain_ms = time_graph(lambda: chain_add_rms_norm(x, d, w, eps))
+        plain_ms = time_events(lambda: rn.reference_add_rms_norm(x, d, w, eps))
+        bound_ms, bound_by = bound(5.0 * M * D, 2.0 * (4 * M * D + D))
+        per_m[M] = {"max_abs_err": err, "max_row_err": row_err, "ms": ms,
+                    "chain_ms": chain_ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"  add_rms_norm D{D}: s and h bit for bit the chain's (add + rms_norm kernel) and "
+        "every row the same at every count and alone; kernel / chain / bound ms: " + "; ".join(
+            f"M{M} {r['ms']:.4f} / {r['chain_ms']:.4f} / {r['bound_ms']:.4f}"
+            for M, r in per_m.items()))
+    return {"D": D, "rows": per_m}
+
+
+def check_qk_norm_rope_kv(gen, int8: bool) -> dict:
+    """``qk_norm_rope_kv`` at qwen3-8b's heads over every token count of
+    GEMM_ROWS into layer 1 of a pool (bf16, or int8 with scales) that holds
+    data, as ``fused_step`` calls it (no k out; every 11th token a padding
+    token on the trash page), and with k out as ``prefill`` calls it: q, k
+    and every page but the trash page's colliding writes bit for bit the
+    unfused chain's (the norm kernel, ``rotate``, ``scatter_kv``), each
+    token's q, k and page rows the same at every count and alone, q and k
+    within ``check_close`` of the plain version; kernel ms (the fused
+    step's call) against the chain's and the bound."""
+    import torch
+
+    from fusioninfer_tpu_torch.models.transformer import rope_tables
+    from fusioninfer_tpu_torch.ops import rms_norm as rn
+
+    H, KV, Hd = QK_HEADS
+    eps, L, ps, layer = 1e-6, 2, PAGE, 1
+    M_max = max(GEMM_ROWS)
+    n_pages = -(-M_max // ps) + 1
+    trash = n_pages - 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q_all, k_all, v_all = randn(M_max, H, Hd), randn(M_max, KV, Hd), randn(M_max, KV, Hd)
+    qn = (1 + 0.1 * torch.randn((Hd,), generator=gen, device="cuda")).to(torch.bfloat16)
+    kn = (1 + 0.1 * torch.randn((Hd,), generator=gen, device="cuda")).to(torch.bfloat16)
+    pos_all = torch.randint(0, 32768, (M_max,), generator=gen, device="cuda")
+    cos_all, sin_all = rope_tables(pos_all, Hd, 1e6)  # [M, 1, Hd / 2], a row a token
+    perm = torch.randperm(trash, generator=gen, device="cuda")
+    tok = torch.arange(M_max, device="cuda")
+    page_live = perm[tok // ps]  # a slot of its own for every token
+    page_all = torch.where(tok % 11 == 10, trash, page_live)
+    slot_all = tok % ps
+    shape = (L, KV, n_pages, ps, Hd)
+    if int8:
+        init = {"k": torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                   dtype=torch.int8),
+                "v": torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                   dtype=torch.int8),
+                "k_scale": torch.rand((L, KV, n_pages, 1, ps), generator=gen, device="cuda"),
+                "v_scale": torch.rand((L, KV, n_pages, 1, ps), generator=gen, device="cuda")}
+    else:
+        init = {"k": randn(*shape), "v": randn(*shape)}
+
+    def pools():
+        return {name: t.clone() for name, t in init.items()}
+
+    def call(fn, lo, hi, cache, page=page_all, k_out=False):
+        return fn(q_all[lo:hi], k_all[lo:hi], v_all[lo:hi], qn, kn,
+                  (cos_all[lo:hi], sin_all[lo:hi]), eps, cache=cache, layer=layer,
+                  write_page=page[lo:hi], write_slot=slot_all[lo:hi], k_out=k_out)
+
+    inv_cache = pools()
+
+    def run(lo, hi):  # every token's q, k and page rows as bytes
+        q, k = call(rn.qk_norm_rope_kv, lo, hi, inv_cache, page=page_live, k_out=True)
+        pg, sl = page_live[lo:hi], slot_all[lo:hi]
+        rows = [q.reshape(hi - lo, -1), k.reshape(hi - lo, -1)]
+        for name, t in inv_cache.items():
+            t = t[layer, :, :, 0] if "scale" in name else t[layer]  # [KV, n_pages, ps(, Hd)]
+            rows.append(t[:, pg, sl].movedim(0, 1).reshape(hi - lo, -1))
+        return torch.cat([r.contiguous().view(torch.uint8) for r in rows], dim=1)
+
+    tag = f"qk_norm_rope_kv {'int8' if int8 else 'bf16'}"
+    check_rows_invariant(run, M_max, gen, tag)
+    per_m = {}
+    for M in GEMM_ROWS:
+        ours, chain, plain = pools(), pools(), pools()
+        for k_out in (False, True):  # as fused_step calls it, then as prefill does
+            q, k = call(rn.qk_norm_rope_kv, 0, M, ours, k_out=k_out)
+            cq, ck = call(chain_qk_norm_rope_kv, 0, M, chain, k_out=k_out)
+            if not torch.equal(q, cq) or (k_out and not torch.equal(k, ck)):
+                raise AssertionError(f"{tag} M{M}: q or k not the unfused chain's bits")
+            for name in ours:
+                if not torch.equal(ours[name][:, :, :trash], chain[name][:, :, :trash]):
+                    raise AssertionError(f"{tag} M{M}: {name} pages not the chain's bits")
+        pq, pk = call(rn.reference_qk_norm_rope_kv, 0, M, plain, k_out=True)
+        err_q, row_q = check_close(q, pq, f"{tag} q M{M}", QK_ROW_TOL, Hd)
+        err_k, row_k = check_close(k, pk, f"{tag} k M{M}", QK_ROW_TOL, Hd)
+        ms = time_graph(lambda: call(rn.qk_norm_rope_kv, 0, M, ours))
+        chain_ms = time_graph(lambda: call(chain_qk_norm_rope_kv, 0, M, chain))
+        plain_ms = time_events(lambda: call(rn.reference_qk_norm_rope_kv, 0, M, plain))
+        page_bytes = (Hd + 4) if int8 else 2 * Hd  # a (token, head)'s page row
+        nbytes = M * (2 * H * Hd * 2 + 2 * KV * Hd * 2 + 2 * KV * page_bytes
+                      + 2 * (Hd // 2) * 4 + 16) + 2 * Hd * 2
+        bound_ms, bound_by = bound(M * (H + KV) * Hd * 8.0, nbytes)
+        per_m[M] = {"max_abs_err": max(err_q, err_k), "max_row_err": max(row_q, row_k),
+                    "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"  {tag} H{H} KV{KV} Hd{Hd}: q, k and pages bit for bit the chain's (rms_norm "
+        "kernel + rotate + scatter_kv), every token the same at every count and alone; "
+        "kernel / chain / bound ms: " + "; ".join(
+            f"M{M} {r['ms']:.4f} / {r['chain_ms']:.4f} / {r['bound_ms']:.4f}"
+            for M, r in per_m.items()))
+    return {"H": H, "KV": KV, "Hd": Hd, "pages": "int8" if int8 else "bf16", "rows": per_m}
 
 
 def paged_pool(gen, rows, int8: bool, L: int = 2, mp: int = 32):
@@ -1558,6 +1753,7 @@ def profile_decode(engine, n_steps: int = 8, sampling: dict | None = None,
     return {"batch": len(lens), "wall_ms_per_step": wall_ms,
             "cpu_ms_per_step": cpu_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
+            "kernels_per_step": kernel_launches(kernels) / n_steps,
             "walk_ms_per_step": sum(dev_us(e) for e in walks) / 1e3 / n_steps,
             "walk_kernels_per_step": {e.key[:80]: e.count / n_steps for e in walks},
             "walk_launches_per_step": walk_counts,
@@ -1600,12 +1796,19 @@ def serve_leg(engine, prompts, must_launch: tuple[str, ...]) -> dict:
                          for r in res]}
 
 
+def kernel_launches(events) -> int:
+    """Kernel launches among a profile's device events (``key_averages``),
+    copies and memsets left out."""
+    return sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset")))
+
+
 def log_profile(prof: dict, card: str) -> None:
     share = prof["device_busy_share"]
     log(f"  decode step, batch 8 (contexts 100..1500): {prof['wall_ms_per_step']:.3f} ms "
         f"wall, {prof['cpu_ms_per_step']:.3f} ms of the thread's CPU time, "
         f"{prof['device_ms_per_step']:.3f} ms on the device "
-        f"(busy share {share if share is None else round(share, 4)}) on {card}; page walk "
+        f"(busy share {share if share is None else round(share, 4)}) on {card}, "
+        f"{prof['kernels_per_step']:.2f} kernel launches a step; page walk "
         f"{prof['walk_ms_per_step']:.4f} ms/step, launches per step "
         f"{prof['walk_kernels_per_step']}")
     for name, ms in prof["top_kernels_ms_per_step"].items():
@@ -1783,14 +1986,16 @@ def serve_prefix_leg(engine, long_len: int, card: str) -> dict:
     if walk != engine.cfg.n_layers * ragged_fwd:
         raise AssertionError(f"prefix leg: {walk} walk launches for {ragged_fwd} ragged "
                              f"forwards of {engine.cfg.n_layers} layers")
-    # every forward's norms (layer, q/k and final) and its seven projections
-    # a layer went through the kernels
+    # every forward's norms and its seven projections a layer went through
+    # the kernels: the first norm alone, two add + norm launches and one q/k
+    # norm + RoPE + page write launch a layer
     L, forwards = engine.cfg.n_layers, delta["weight_passes"]
-    norms = (2 + 2 * engine.cfg.qk_norm) * L + 1
-    if (launches["rms_norm"] != norms * forwards
+    norms = {"rms_norm": 1, "add_rms_norm": 2 * L, "qk_norm_rope_kv": L}
+    if (any(launches[k] != n * forwards for k, n in norms.items())
             or launches["gemm"] < 7 * L * forwards):
-        raise AssertionError(f"prefix leg: {launches['rms_norm']} norm and "
-                             f"{launches['gemm']} GEMM launches for {forwards} forwards")
+        raise AssertionError(f"prefix leg: norm launches "
+                             f"{ {k: launches[k] for k in norms} } and {launches['gemm']} "
+                             f"GEMM launches for {forwards} forwards")
     gap = check_greedy(engine, [results[k] for k in order], paged_prompt=True)
     tok = ByteTokenizer()
     ttft = {k: results[k]["ttft_s"] for k in order}
@@ -2264,6 +2469,7 @@ def profile_stepping(engine, n_tokens: int = 32, gemm_ab: bool = False) -> dict:
         raise AssertionError("the profile saw no page-walk kernel")
     return {"rows": len(lens), "wall_ms_per_token": wall_ms, "cpu_ms_per_token": cpu_ms,
             "device_ms_per_token": device_ms,
+            "kernels_per_token": kernel_launches(kernels) / per_stream2,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "walk_launches_per_token": {e.key[:60]: e.count / per_stream2 for e in walks},
             "gemm_ab": gemm_ab}
@@ -2271,14 +2477,17 @@ def profile_stepping(engine, n_tokens: int = 32, gemm_ab: bool = False) -> dict:
 
 def gemm_cost(engine) -> dict:
     """The device ms of one forward (:func:`time_graph`: two forwards a
-    graph, the median of five replays, A B B A): a decode-only forward
-    from the running batch's state at 8 and at 2 live rows, a fused step
-    of 4 of those rows beside a ``CHUNK_AB``-token chunk, and a flash
+    graph, the median of five replays, in turns K C L L C K): a decode-only
+    forward from the running batch's state at 8 and at 2 live rows, a fused
+    step of 4 of those rows beside a ``CHUNK_AB``-token chunk, and a flash
     prefill of one ``PREFILL_AB``-token prompt (the chunk and the prompt
-    write the trash page); each through the port's GEMM and RMSNorm
-    kernels, and with its projections through ``torch.matmul`` (cuBLAS)
-    and its norms through the plain version, the yardstick (swapped in
-    here for the timing only; the port never calls them on the card)."""
+    write the trash page); K through the port's kernels, C with the fused
+    norms swapped for the unfused chain they replace (the norm kernel,
+    torch's residual adds, ``rotate``, ``scatter_kv``: the forward as it
+    ran before the fusion), L with the projections through
+    ``torch.matmul`` (cuBLAS) and every norm, fused or not, through its
+    plain version, the yardstick (swapped in here for the timing only; the
+    port never calls them on the card)."""
     import numpy as np
     import torch
 
@@ -2314,29 +2523,36 @@ def gemm_cost(engine) -> dict:
         return time_graph(lambda: mr.prefill(engine.cfg, cc, engine.params, engine.cache,
                                              tokens, lens, rows), reps=5, per_graph=2)
 
-    routed = [(mod, name, getattr(mod, name)) for mod in (tf, mr)
-              for name in ("matmul", "rms_norm")]
-    yardstick = {"matmul": torch.matmul, "rms_norm": rn.reference_rms_norm}
+    names = ("matmul", "rms_norm", "add_rms_norm", "qk_norm_rope_kv")
+    routed = [(mod, name, getattr(mod, name)) for mod in (tf, mr) for name in names
+              if hasattr(mod, name)]
+    swaps = {"kernels": {},
+             "chain": {"add_rms_norm": chain_add_rms_norm,
+                       "qk_norm_rope_kv": chain_qk_norm_rope_kv},
+             "cublas": {"matmul": torch.matmul, "rms_norm": rn.reference_rms_norm,
+                        "add_rms_norm": rn.reference_add_rms_norm,
+                        "qk_norm_rope_kv": rn.reference_qk_norm_rope_kv}}
 
-    def library(on: bool):
+    def route(variant: str):
         for mod, name, fn in routed:
-            setattr(mod, name, yardstick[name] if on else fn)
+            setattr(mod, name, swaps[variant].get(name, fn))
 
     slots = sorted(live)
     cases = {"live8": lambda: forward_ms(slots[:8]), "live2": lambda: forward_ms(slots[:2]),
              f"fused4_chunk{CHUNK_AB}": lambda: forward_ms(slots[:4], CHUNK_AB),
              f"prefill{PREFILL_AB}": prefill_ms}
+    order = ("kernels", "chain", "cublas", "cublas", "chain", "kernels")
     out = {}
     for name, fn in cases.items():
-        runs = []
-        for lib in (False, True, True, False):
-            library(lib)
+        runs: dict[str, list[float]] = {}
+        for variant in order:
+            route(variant)
             try:
-                runs.append(fn())
+                runs.setdefault(variant, []).append(fn())
             finally:
-                library(False)
-        out[f"{name}_kernels"] = (runs[0] + runs[3]) / 2
-        out[f"{name}_cublas"] = (runs[1] + runs[2]) / 2
+                route("kernels")
+        for variant, ms in runs.items():
+            out[f"{name}_{variant}"] = sum(ms) / len(ms)
     return out
 
 
@@ -2484,17 +2700,17 @@ def serve_burst_leg(make_engine, tag: str, card: str, extras: bool) -> dict:
         log(f"  {tag}, {name[8:]}: per token of each of 8 streams {p['wall_ms_per_token']:.3f} "
             f"ms wall, {p['cpu_ms_per_token']:.3f} ms thread CPU, "
             f"{p['device_ms_per_token']:.3f} ms device, busy "
-            f"{p['device_busy_share'] if p['device_busy_share'] is None else round(p['device_busy_share'], 4)} "
-            f"on {card}")
+            f"{p['device_busy_share'] if p['device_busy_share'] is None else round(p['device_busy_share'], 4)}, "
+            f"{p['kernels_per_token']:.2f} kernel launches on {card}")
     ab = out["profile_per_token"]["gemm_ab"]
     if ab:
-        log(f"  {tag}: decode-only forward, device ms (A B B A) on {card}: 8 live rows "
-            f"{ab['live8_kernels']:.3f} through the GEMM and norm kernels, "
-            f"{ab['live8_cublas']:.3f} through torch.matmul and the plain norm; 2 live rows "
-            f"{ab['live2_kernels']:.3f} / {ab['live2_cublas']:.3f}; 4 rows beside a "
-            f"{CHUNK_AB}-token chunk {ab[f'fused4_chunk{CHUNK_AB}_kernels']:.3f} / "
-            f"{ab[f'fused4_chunk{CHUNK_AB}_cublas']:.3f}; flash prefill of {PREFILL_AB} tokens "
-            f"{ab[f'prefill{PREFILL_AB}_kernels']:.3f} / {ab[f'prefill{PREFILL_AB}_cublas']:.3f}")
+        cases = {"8 live rows": "live8", "2 live rows": "live2",
+                 f"4 rows beside a {CHUNK_AB}-token chunk": f"fused4_chunk{CHUNK_AB}",
+                 f"flash prefill of {PREFILL_AB} tokens": f"prefill{PREFILL_AB}"}
+        log(f"  {tag}: one forward's device ms (K C L L C K) on {card}, through the kernels / "
+            "with the unfused norm chain / through torch.matmul and the plain norms: " + "; ".join(
+                f"{label} {ab[key + '_kernels']:.3f} / {ab[key + '_chain']:.3f} / "
+                f"{ab[key + '_cublas']:.3f}" for label, key in cases.items()))
     return out
 
 
@@ -2766,6 +2982,12 @@ def main() -> int:
     log(f"  the row-invariant GEMM and RMSNorm (|err| <= {RTOL}·|ref| + "
         f"{GEMM_ROW_TOL}·rms(row) against x @ w and the plain norm; rows of N or D)")
     norms = check_norm(gen)
+    log(f"  RMSNorm fused into its neighbours (bit for bit the unfused chain; |err| <= "
+        f"{RTOL}·|ref| + {NORM_ROW_TOL}·rms(row) add + norm, {QK_ROW_TOL} q / k, against "
+        "the plain versions)")
+    fused_norms = {"add_rms_norm": check_add_norm(gen),
+                   **{f"qk_norm_rope_kv_{'int8' if int8 else 'bf16'}":
+                      check_qk_norm_rope_kv(gen, int8) for int8 in (False, True)}}
     gemms = check_gemm(gen)
     cases = primitive_cases(gen)
     launches_b = drive_primitives(cases)
@@ -2848,7 +3070,7 @@ def main() -> int:
     prompts = [("The quick brown fox jumps over the lazy dog. " * 40)[:n]
                for n in N_REQUESTS_PROMPTS]
     serve4 = serve_leg(engine, prompts, ("flash_attention", "ragged_paged_attention_kvsplit",
-                                         "gemm", "rms_norm"))
+                                         *PROJECTION_KERNELS))
     prof4 = profile_decode(engine)
     log_profile(prof4, card)
     check_one_walk_per_layer(prof4, cfg.n_layers)
@@ -2864,7 +3086,7 @@ def main() -> int:
         raise AssertionError(f"expected the single walk at 2048, got kv_splits {engine.kv_splits}")
     prompts5 = prompts[:2] + [prompts[2][:600], prompts[3][:1000]]
     serve5 = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention",
-                                          "gemm", "rms_norm"))
+                                          *PROJECTION_KERNELS))
     prof5 = profile_decode(engine)
     log_profile(prof5, card)
     check_one_walk_per_layer(prof5, cfg.n_layers)
@@ -2879,8 +3101,8 @@ def main() -> int:
     if engine.kv_splits == 0 or engine.cache["k"].dtype != torch.int8:
         raise AssertionError("expected int8 pages and the split walk at 4096")
     serve6 = serve_leg(engine, prompts, ("flash_attention",
-                                         "ragged_paged_attention_kvsplit_int8", "gemm",
-                                         "rms_norm"))
+                                         "ragged_paged_attention_kvsplit_int8",
+                                         *PROJECTION_KERNELS))
     prof6 = profile_decode(engine)
     log_profile(prof6, card)
     check_one_walk_per_layer(prof6, cfg.n_layers)
@@ -2890,7 +3112,7 @@ def main() -> int:
                                                  prefix_caching=False),
                           max_batch_size=8, params=params, device="cuda", **legacy)
     serve6s = serve_leg(engine, prompts5, ("flash_attention", "ragged_paged_attention_int8",
-                                           "gemm", "rms_norm"))
+                                           *PROJECTION_KERNELS))
     del engine
     torch.cuda.empty_cache()
 
@@ -2987,18 +3209,22 @@ def main() -> int:
                 total[shape] = total.get(shape, 0) + n
         return total
 
-    for name in ("gemm", "rms_norm"):
+    for name in PROJECTION_KERNELS:
         if served(name) == 0:
             raise AssertionError(f"the serve legs launched no {name} kernel")
     shapes = {name: served_by_shape(name) for name in dispatch.KERNELS}
-    for name in ("gemm", "rms_norm"):
+    for name in PROJECTION_KERNELS:
         if sum(shapes[name].values()) != served(name):
             raise AssertionError(f"{name}: launches by shape {shapes[name]} do not add up to "
                                  f"{served(name)}")
     gemm_names = {f"{K}x{N}": name for name, (K, N) in GEMM_SHAPES.items()}
     log("  launches over phases 4-10 by shape: gemm " + ", ".join(
         f"{gemm_names.get(k, k)} {n}" for k, n in sorted(shapes["gemm"].items()))
-        + "; rms_norm " + ", ".join(f"D{k} {n}" for k, n in sorted(shapes["rms_norm"].items())))
+        + "; rms_norm " + ", ".join(f"D{k} {n}" for k, n in sorted(shapes["rms_norm"].items()))
+        + "; add_rms_norm " + ", ".join(f"D{k} {n}"
+                                        for k, n in sorted(shapes["add_rms_norm"].items()))
+        + "; qk_norm_rope_kv " + ", ".join(f"{k} {n}" for k, n in
+                                           sorted(shapes["qk_norm_rope_kv"].items())))
     # the page walks by tokens a launch: decode rows (T <= 8), windows and
     # short steps (9-64), fused steps and long suffixes (> 64)
     walk_classes = {}
@@ -3037,7 +3263,11 @@ def main() -> int:
     for name, source, at, res in (
             ("gemm", "gemm.cu", f"{tf_py}:{JAX_DOT_LINE}", gemms["gate/up"]["rows"][8]),
             ("rms_norm", "rms_norm.cu", f"{tf_py}:{JAX_NORM_LINE}",
-             norms["d_model"]["rows"][8])):
+             norms["d_model"]["rows"][8]),
+            ("add_rms_norm", "rms_norm.cu", f"{tf_py}:{JAX_ADD_LINE}",
+             fused_norms["add_rms_norm"]["rows"][8]),
+            ("qk_norm_rope_kv", "rms_norm.cu", f"{tf_py}:{JAX_ROPE_LINE}",
+             fused_norms["qk_norm_rope_kv_bf16"]["rows"][8])):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"fusioninfer_tpu_torch/csrc/{source}", "replaces": at,
                         "launches": served(name),
@@ -3069,7 +3299,8 @@ def main() -> int:
                                   for (sp, q8), r in spec_shape.items()},
                    "spec_bits_rows": spec_bits, "spec_cluster": spec_cl,
                    "spec_legs": serve8, "burst_legs": serve9, "guided_leg": serve10,
-                   "gemm": gemms, "rms_norm": norms, "launches_by_shape": shapes,
+                   "gemm": gemms, "rms_norm": norms, "fused_norms": fused_norms,
+                   "launches_by_shape": shapes,
                    "walk_launches_by_tokens": walk_classes,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[11/11] done in {time.perf_counter() - t_start:.1f} s")

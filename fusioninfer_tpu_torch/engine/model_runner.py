@@ -29,13 +29,14 @@ import torch
 from fusioninfer_tpu_torch.engine.kv_cache import CacheConfig
 from fusioninfer_tpu_torch.engine.sampler import apply_penalties, sample
 from fusioninfer_tpu_torch.models.config import ModelConfig
-from fusioninfer_tpu_torch.models.quantization import kv_quantize
 from fusioninfer_tpu_torch.models.transformer import (
+    add_rms_norm,
     embed_lookup,
     layer_forward,
     layer_params,
     lm_head,
     mlp_block,
+    next_norm,
     qkv_proj,
     rms_norm,
     rope_tables,
@@ -46,27 +47,6 @@ from fusioninfer_tpu_torch.ops.paged_attention import (
     ragged_paged_attention_kvsplit,
     ragged_token_rows,
 )
-
-
-def _scatter_kv(cache: dict, l: int, k: torch.Tensor, v: torch.Tensor,
-                write_page: torch.Tensor, write_slot: torch.Tensor,
-                head_axis: int) -> None:
-    """Write fresh K/V (``[..., KV, Hd]``, head axis at ``head_axis``) into
-    layer ``l`` of the head-major pools ``[L, KV, n_pages, ps, Hd]`` in
-    place, at ``(write_page, write_slot)`` (int64 index tensors of the
-    leading shape).  An int8 pool quantizes on the way; the per-token
-    scales land in the squeezed ``[KV, n_pages, ps]`` view of layer
-    ``l``'s ``[KV, n_pages, 1, ps]`` scale pool."""
-    if "k_scale" in cache:
-        (k, k_s), (v, v_s) = kv_quantize(k), kv_quantize(v)
-        cache["k_scale"][l, :, :, 0][:, write_page, write_slot] = torch.movedim(
-            k_s, head_axis, 0)
-        cache["v_scale"][l, :, :, 0][:, write_page, write_slot] = torch.movedim(
-            v_s, head_axis, 0)
-    cache["k"][l][:, write_page, write_slot] = torch.movedim(k, head_axis, 0).to(
-        cache["k"].dtype)
-    cache["v"][l][:, write_page, write_slot] = torch.movedim(v, head_axis, 0).to(
-        cache["v"].dtype)
 
 
 def _ragged_attn(q, cache, page_tables, row_starts, q_begins, q_lens, *,
@@ -104,12 +84,15 @@ def prefill(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
         torch.gather(page_rows, 1, (token_idx // ps).expand(B, S)),
         torch.full_like(page_rows[:, :1], cache_cfg.trash_page),
     ).long()
-    slot_of_token = (token_idx % ps).expand(B, S)
+    slot_of_token = (token_idx % ps).repeat(B, 1)
+    h = rms_norm(x, params["layers"]["attn_norm"][0], cfg.rms_eps)
     for l in range(cfg.n_layers):
-        x, (k, v) = layer_forward(cfg, layer_params(params, l), x, rope)
-        _scatter_kv(cache, l, k, v, page_of_token, slot_of_token, head_axis=2)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    last = x[torch.arange(B, device=x.device), (true_lens - 1).clamp(min=0)]
+        # the layer's fresh K/V land in its pages inside qkv_proj's launch
+        x, h = layer_forward(cfg, layer_params(params, l), x, h, rope,
+                             next_norm(params, l),
+                             dict(cache=cache, layer=l, write_page=page_of_token,
+                                  write_slot=slot_of_token))
+    last = h[torch.arange(B, device=h.device), (true_lens - 1).clamp(min=0)]
     return lm_head(cfg, params, last)
 
 
@@ -160,20 +143,21 @@ def fused_step(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
         live, tables_tok[torch.arange(T, device=dev), (positions // ps).long()],
         torch.full_like(positions, cache_cfg.trash_page)).long()
     write_slot = (positions % ps).long()
-    x = embed_lookup(params["embed"], tokens)[:, None, :]  # [T, 1, D]
-    rope = rope_tables(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    x = embed_lookup(params["embed"], tokens)  # [T, D]
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    h = rms_norm(x, params["layers"]["attn_norm"][0], cfg.rms_eps)
     for l in range(cfg.n_layers):
         layer = layer_params(params, l)
-        q, k, v = qkv_proj(cfg, layer, x, rope)
-        _scatter_kv(cache, l, k[:, 0], v[:, 0], write_page, write_slot,
-                    head_axis=1)
-        attn = _ragged_attn(q[:, 0].contiguous(), cache, page_tables,
-                            row_starts, q_begins, q_lens, layer=l,
-                            window=cfg.sliding_window, kv_splits=kv_splits,
+        # q [T, H, Hd], the walk's layout; k and v go straight to the pages
+        q, _, _ = qkv_proj(cfg, layer, h, rope, k_out=False,
+                           pages=dict(cache=cache, layer=l, write_page=write_page,
+                                      write_slot=write_slot))
+        attn = _ragged_attn(q, cache, page_tables, row_starts, q_begins, q_lens,
+                            layer=l, window=cfg.sliding_window, kv_splits=kv_splits,
                             cluster=cluster)
-        x = x + matmul(attn[:, None, :], layer["wo"])
-        x = x + mlp_block(cfg, layer, x)
-    h = rms_norm(x, params["final_norm"], cfg.rms_eps)[:, 0]  # [T, D]
+        x, h = add_rms_norm(x, matmul(attn, layer["wo"]), layer["mlp_norm"], cfg.rms_eps)
+        x, h = add_rms_norm(x, mlp_block(cfg, layer, h), next_norm(params, l), cfg.rms_eps)
+    # h [T, D]: the final norm of the last layer's stream
     idx = sel.long().clamp(0, T - 1)  # [B, W]
     V = cfg.vocab_size
     chunk_logits = (lm_head(cfg, params, h[chunk_sel.long().clamp(0, T - 1)])

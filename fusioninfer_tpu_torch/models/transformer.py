@@ -5,11 +5,15 @@ weights are stacked on a leading ``n_layers`` axis and kept in the JAX
 package's ``[in, out]`` layout, so ``x @ w`` reads the same on both
 sides; the forward loops over layers in Python where the JAX package
 scans.  Every projection goes through :func:`ops.gemm.matmul` and every
-norm through :func:`ops.rms_norm.rms_norm`: on the card their kernels
-reduce each row in an order fixed by the weight's shape, so a row's bits
-never depend on how many rows share the forward; on the CPU they are
-``x @ w`` and the plain norm.  Attention goes through
-:mod:`fusioninfer_tpu_torch.ops.flash_attention`.
+norm through :mod:`ops.rms_norm`: on the card their kernels reduce each
+row in an order fixed by the weight's shape, so a row's bits never
+depend on how many rows share the forward; on the CPU they are ``x @ w``
+and the plain norm.  A norm runs fused into its neighbours: the first
+layer's attention norm alone (:func:`rms_norm`), every other one with
+the residual add before it (:func:`add_rms_norm`, whose normed output
+the loop carries into the next block), and the q and k norms with RoPE
+and the K/V page write (:func:`qk_norm_rope_kv`).  Attention goes
+through :mod:`fusioninfer_tpu_torch.ops.flash_attention`.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 from fusioninfer_tpu_torch.models.config import ModelConfig
 from fusioninfer_tpu_torch.ops.flash_attention import flash_attention
 from fusioninfer_tpu_torch.ops.gemm import matmul
-from fusioninfer_tpu_torch.ops.rms_norm import rms_norm
+from fusioninfer_tpu_torch.ops.rms_norm import add_rms_norm, qk_norm_rope_kv, rms_norm, rotate
 
 Params = dict
 
@@ -39,15 +43,6 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     freqs = rope_frequencies(head_dim, theta, positions.device)
     angles = positions[..., :, None].float() * freqs  # [..., seq, hd/2]
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
-
-
-def rotate(x: torch.Tensor, rope) -> torch.Tensor:
-    """Rotary embedding, NeoX half-rotation layout, from
-    :func:`rope_tables`.  x: [..., seq, heads, head_dim]."""
-    cos, sin = rope
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -122,35 +117,49 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def qkv_proj(cfg: ModelConfig, layer: Params, x: torch.Tensor, rope):
-    """Pre-norm + QKV projection + QK-norm + RoPE, shared by every path.
-    x: [B, S, D], ``rope`` from :func:`rope_tables` at the tokens'
-    positions → q [B, S, H, Hd], k/v [B, S, KV, Hd]."""
-    B, S, _ = x.shape
+def qkv_proj(cfg: ModelConfig, layer: Params, h: torch.Tensor, rope, *,
+             k_out: bool = True, pages: dict | None = None):
+    """QKV projection of the attention-normed hidden states ``h [..., D]``,
+    then QK-norm and RoPE (and, with ``pages``, the K/V page write: the
+    keywords ``cache``, ``layer``, ``write_page``, ``write_slot`` of
+    :func:`qk_norm_rope_kv`) in one launch, shared by every path.  ``rope``
+    from :func:`rope_tables` at the tokens' positions → q [..., H, Hd], k
+    [..., KV, Hd] (None without ``k_out``), v [..., KV, Hd]."""
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-    q = matmul(h, layer["wq"]).reshape(B, S, H, Hd)
-    k = matmul(h, layer["wk"]).reshape(B, S, KV, Hd)
-    v = matmul(h, layer["wv"]).reshape(B, S, KV, Hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, layer["q_norm"], cfg.rms_eps)
-        k = rms_norm(k, layer["k_norm"], cfg.rms_eps)
-    return rotate(q, rope), rotate(k, rope), v
+    lead = h.shape[:-1]
+    q = matmul(h, layer["wq"]).reshape(*lead, H, Hd)
+    k = matmul(h, layer["wk"]).reshape(*lead, KV, Hd)
+    v = matmul(h, layer["wv"]).reshape(*lead, KV, Hd)
+    norms = (layer["q_norm"], layer["k_norm"]) if cfg.qk_norm else (None, None)
+    q, k = qk_norm_rope_kv(q, k, v, *norms, rope, cfg.rms_eps, k_out=k_out,
+                           **(pages or {}))
+    return q, k, v
 
 
-def mlp_block(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm + dense SwiGLU; residual NOT added."""
-    h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+def mlp_block(cfg: ModelConfig, layer: Params, h: torch.Tensor) -> torch.Tensor:
+    """Dense SwiGLU of the MLP-normed hidden states ``h``; residual NOT
+    added (the caller adds it in :func:`add_rms_norm` with the next norm)."""
     return swiglu(h, layer["w_gate"], layer["w_up"], layer["w_down"])
 
 
-def layer_forward(cfg: ModelConfig, layer: Params, x: torch.Tensor, rope):
-    """One block of fresh causal self-attention → (output, (k, v))."""
-    q, k, v = qkv_proj(cfg, layer, x, rope)
-    attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True, window=cfg.sliding_window)
-    x = x + matmul(attn, layer["wo"])
-    return x + mlp_block(cfg, layer, x), (k, v)
+def next_norm(params: Params, l: int) -> torch.Tensor:
+    """The norm after layer ``l``: layer ``l + 1``'s attention norm, or the
+    final norm after the last layer."""
+    norms = params["layers"]["attn_norm"]
+    return norms[l + 1] if l + 1 < norms.shape[0] else params["final_norm"]
+
+
+def layer_forward(cfg: ModelConfig, layer: Params, x: torch.Tensor,
+                  h: torch.Tensor, rope, after: torch.Tensor, pages: dict | None = None):
+    """One block of fresh causal self-attention over the residual stream
+    ``x [B, S, D]``, ``h`` its attention-normed form → ``(x', h')``: the
+    stream after the block and ``x'`` normed by ``after``
+    (:func:`next_norm`); with ``pages`` (see :func:`qkv_proj`) the
+    block's K/V land in the pages."""
+    q, k, v = qkv_proj(cfg, layer, h, rope, pages=pages)
+    attn = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    x, h = add_rms_norm(x, matmul(attn, layer["wo"]), layer["mlp_norm"], cfg.rms_eps)
+    return add_rms_norm(x, mlp_block(cfg, layer, h), after, cfg.rms_eps)
 
 
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -178,9 +187,11 @@ def hidden_states(cfg: ModelConfig, params: Params,
     x = embed_lookup(params["embed"], tokens)
     rope = rope_tables(torch.arange(S, device=tokens.device), cfg.head_dim,
                        cfg.rope_theta)
+    h = rms_norm(x, params["layers"]["attn_norm"][0], cfg.rms_eps)
     for l in range(cfg.n_layers):
-        x, _ = layer_forward(cfg, layer_params(params, l), x, rope)
-    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+        x, h = layer_forward(cfg, layer_params(params, l), x, h, rope,
+                             next_norm(params, l))
+    return h
 
 
 @torch.no_grad()

@@ -63,6 +63,13 @@ SIGNATURES = {
     "rms_norm.cu": {
         # x, w, y, rows, D, eps, stream
         "rms_norm_bf16": [_P] * 3 + [_I] * 2 + [_F, _P],
+        # x, delta, w, s, h, rows, D, eps, stream
+        "add_rms_norm_bf16": [_P] * 5 + [_I] * 2 + [_F, _P],
+        # q, k, v, q_w, k_w (NULL: no norm), cos, sin, q_out, k_out (NULL:
+        # none), k_pages, v_pages (NULL: no write), k_scales, v_scales
+        # (NULL: bf16 pages), write_page, write_slot, N, H, KV, Hd,
+        # rope_rows, n_pages, ps, layer, eps, stream
+        "qk_norm_rope_kv_bf16": [_P] * 15 + [_I] * 8 + [_F, _P],
     },
     "paged_window_attention.cu": {
         # q, k_pages, v_pages, k_scales, v_scales, tables, starts, counts,

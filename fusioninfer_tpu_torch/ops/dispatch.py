@@ -18,12 +18,13 @@ KERNELS = ("flash_attention",
            "paged_decode_attention", "paged_decode_attention_int8",
            "paged_prefill_attention", "paged_prefill_attention_int8",
            "paged_verify_attention", "paged_verify_attention_int8",
-           "gemm", "rms_norm")
+           "gemm", "rms_norm", "add_rms_norm", "qk_norm_rope_kv")
 
 # kernel name -> launches since the last reset; a wrapper adds one where
 # it launches its kernel and nowhere else, and one under
 # ``<name>[<shape>]`` for the shape it launched at (the GEMM's ``KxN``,
-# the norm's ``D``, flash's ``B S``, the walks' tokens ``T``).  A CUDA
+# the norms' ``D``, the fused q/k kernel's ``HxKVxHd`` and page type,
+# flash's ``B S``, the walks' tokens ``T``).  A CUDA
 # graph's capture launches nothing and its replay runs no wrapper: the
 # graph runner (engine/graphs.py) takes back what the wrappers counted
 # during the capture and adds it again at each replay, which launches

@@ -338,6 +338,8 @@ def test_engine_fixes_one_walk_cluster_whatever_T(weights, monkeypatch):
     for mod in (tmr, ttr):
         monkeypatch.setattr(mod, "matmul", tgemm.reference_matmul)
         monkeypatch.setattr(mod, "rms_norm", trn.reference_rms_norm)
+        monkeypatch.setattr(mod, "add_rms_norm", trn.reference_add_rms_norm)
+    monkeypatch.setattr(ttr, "qk_norm_rope_kv", trn.reference_qk_norm_rope_kv)
     # the static shapes of an engine on the card: 8 rows, KV 2, mp 8
     fixed = tpa.pick_cluster_size(8, cfg.n_kv_heads, 8, 132)
     monkeypatch.setattr(teng, "engine_cluster_size",
@@ -376,10 +378,10 @@ def test_decode_forwards_run_their_gemms_at_fixed_rows(weights, monkeypatch, spe
     gemm_rows, walk_tokens, live_rows, in_decode = [], [], [], [False]
     real_qkv, real_attn = tmr.qkv_proj, tmr._ragged_attn
 
-    def qkv(cfg, layer, x, rope):
+    def qkv(cfg, layer, h, rope, **kw):
         if in_decode[0]:
-            gemm_rows.append(x.shape[0])
-        return real_qkv(cfg, layer, x, rope)
+            gemm_rows.append(h.shape[0])
+        return real_qkv(cfg, layer, h, rope, **kw)
 
     def attn(q, *a, **k):
         if in_decode[0]:

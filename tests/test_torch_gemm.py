@@ -339,11 +339,22 @@ def test_norm_wrapper_refuses_what_the_kernel_does_not_take(faked):
     assert not faked
 
 
+def _norm_launches_of_forwards(L: int, forwards: int = 1) -> dict:
+    """What ``forwards`` forwards of L layers launch besides the GEMM and
+    the walks: the first attention norm alone, every other norm fused
+    with the residual add before it (the MLP norm and the next layer's
+    attention norm, the last layer's being the final norm), and one q/k
+    norm + RoPE (+ page write) launch a layer."""
+    return {"rms_norm": forwards, "add_rms_norm": 2 * L * forwards,
+            "qk_norm_rope_kv": L * forwards}
+
+
 def test_every_projection_and_norm_of_a_forward_goes_through_the_kernels(faked):
     """A bf16 qwen3-tiny forward with the launches faked: one GEMM per
-    projection (q, k, v, o, gate, up, down a layer, and the head) and one
-    norm per norm (attention, q, k and MLP norms a layer, and the final
-    norm), and nothing else; the tied head reads a contiguous copy."""
+    projection (q, k, v, o, gate, up, down a layer, and the head), the
+    first layer's attention norm alone, two add + norm launches a layer,
+    one q/k norm + RoPE launch a layer, and nothing else: no norm of its
+    own for q, k or the MLP; the tied head reads a contiguous copy."""
     cfg = TINY
     params = ttr.tied_head(ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
     assert params["lm_head"].is_contiguous()
@@ -362,10 +373,57 @@ def test_every_projection_and_norm_of_a_forward_goes_through_the_kernels(faked):
     finally:
         tr.flash_attention = orig
     L = cfg.n_layers
-    launches = dispatch.launches()
-    assert launches["gemm"] == 7 * L + 1
-    assert launches["rms_norm"] == 4 * L + 1
-    assert sum(launches.values()) == launches["gemm"] + launches["rms_norm"]
+    launches = {k: n for k, n in dispatch.launches().items() if n}
+    assert launches == {"gemm": 7 * L + 1, **_norm_launches_of_forwards(L)}
+    shapes = dispatch.launches(by_shape=True)
+    D, H, KV, Hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    assert dispatch.by_shape(shapes, "rms_norm") == {str(D): 1}
+    assert dispatch.by_shape(shapes, "add_rms_norm") == {str(D): 2 * L}
+    assert dispatch.by_shape(shapes, "qk_norm_rope_kv") == {f"{H}x{KV}x{Hd} none": L}
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_every_projection_and_norm_of_a_fused_step_goes_through_the_kernels(
+        faked, monkeypatch, kv_dtype):
+    """One decode-only ``fused_step`` of bf16 qwen3-tiny over bf16 and int8
+    pools with the launches faked: the same GEMMs and norms as a forward
+    (the K/V page write inside the q/k launch, none of its own), one walk
+    a layer, and nothing else."""
+    from fusioninfer_tpu_torch.engine import kv_cache as tkv
+    from fusioninfer_tpu_torch.engine import model_runner as tmr
+    from fusioninfer_tpu_torch.ops import paged_attention as tpa
+
+    monkeypatch.setattr(tpa, "_stream", lambda t: 0)
+    monkeypatch.setattr(tpa, "_sm_count", lambda device: 132)
+    cfg = TINY
+    cc = tkv.CacheConfig(n_pages=9, page_size=16, max_pages_per_seq=4, kv_dtype=kv_dtype)
+    cache = tkv.init_kv_cache(cfg, cc, "cpu")
+    params = ttr.tied_head(ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    B = 4
+    rows = torch.arange(B, dtype=torch.int32)
+    tables = torch.arange(B * 2, dtype=torch.int32).reshape(B, 2)
+    tokens = torch.tensor([5, 6, 7, 8])
+    positions = torch.tensor([3, 17, 0, 30], dtype=torch.int32)
+    dispatch.reset_launches()
+    tmr.fused_step(cfg, cc, params, cache, tokens, positions, rows,
+                   torch.ones(B, dtype=torch.int32), tables, rows[:, None], rows[:0],
+                   cluster=1, n_tokens=B)
+    L = cfg.n_layers
+    walk = "ragged_paged_attention" + ("_int8" if kv_dtype == "int8" else "")
+    launches = {k: n for k, n in dispatch.launches().items() if n}
+    assert launches == {"gemm": 7 * L + 1, walk: L, **_norm_launches_of_forwards(L)}
+    kind = "int8" if kv_dtype == "int8" else "bf16"
+    shapes = dispatch.launches(by_shape=True)
+    assert dispatch.by_shape(shapes, "qk_norm_rope_kv") == {
+        f"{cfg.n_heads}x{cfg.n_kv_heads}x{cfg.head_dim} {kind}": L}
+    qk = [args for source, fn, args in faked if fn == "qk_norm_rope_kv_bf16"]
+    assert len(qk) == L
+    for l, args in enumerate(qk):
+        # the pools and, on int8 pools, the scales; no k out for the walk
+        assert args[8] == 0 and args[9] == cache["k"].data_ptr()
+        assert (args[11] != 0) == (kv_dtype == "int8")
+        assert args[15:23] == (B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, B,
+                               cc.n_pages, cc.page_size, l)
 
 
 def test_tied_head_leaves_an_untied_model_alone():

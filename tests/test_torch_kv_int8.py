@@ -27,12 +27,12 @@ from fusioninfer_tpu.ops import paged_attention as jpa
 from fusioninfer_tpu_torch.convert import params_from_jax
 from fusioninfer_tpu_torch.engine import engine as teng
 from fusioninfer_tpu_torch.engine import kv_cache as tkv
-from fusioninfer_tpu_torch.engine import model_runner as tmr
 from fusioninfer_tpu_torch.engine import sampler as tsamp
 from fusioninfer_tpu_torch.models import config as tcfg
 from fusioninfer_tpu_torch.models import quantization as tquant
 from fusioninfer_tpu_torch.ops import dispatch
 from fusioninfer_tpu_torch.ops import paged_attention as tpa
+from fusioninfer_tpu_torch.ops import rms_norm as trn
 
 # f32 math on both sides over the same int8 codes and scales; the two
 # frameworks sum in different orders and fold the scales at different
@@ -123,9 +123,9 @@ def test_int8_scatter_matches_jax(head_axis):
                           jnp.asarray(k), jnp.asarray(v), jnp.asarray(page),
                           jnp.asarray(slot), head_axis=head_axis)
     ours = {n: torch.from_numpy(a.copy()) for n, a in pools.items()}
-    tmr._scatter_kv(ours, 1, torch.from_numpy(k), torch.from_numpy(v),
-                    torch.from_numpy(page).long(), torch.from_numpy(slot).long(),
-                    head_axis=head_axis)
+    trn.scatter_kv(ours, 1, torch.from_numpy(k), torch.from_numpy(v),
+                   torch.from_numpy(page).long(), torch.from_numpy(slot).long(),
+                   head_axis=head_axis)
     for name in pools:
         np.testing.assert_array_equal(_bits(ours[name].numpy()), _bits(ref[name]))
 

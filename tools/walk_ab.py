@@ -15,8 +15,9 @@ leg's); then qwen3-8b engines at max-model-len 2048 (the single walk)
 and 4096 (the split walk, on bf16 and on int8 KV pages), random weights
 from seed 0, each through ``chip_smoke.profile_decode``, greedy and
 then seeded top-k 40: wall and thread CPU ms per decode step over 24
-steps (a list, one entry per run), then device ms per step and the
-walk's over 8 steps under the profiler.  With ``--toggle ATTR``, on a
+steps (a list, one entry per run), then device ms and kernel launches
+per step, the walk's ms and the top kernels over 8 steps under the
+profiler.  With ``--toggle ATTR``, on a
 checkout whose engine has the boolean attribute ``ATTR``, each
 decoding's wall and CPU ms are taken with it set True, False, False and
 True, and its device ms once each way.  ``--out FILE`` appends each
@@ -142,6 +143,7 @@ def one_turn(tree: str, toggle: str | None = None) -> dict:
                             prof[f"{name}_ms_per_step"])
                     continue
                 res[f"{key} step device ms"] = prof["device_ms_per_step"]
+                res[f"{key} kernel launches per step"] = prof.get("kernels_per_step")
                 res[f"{key} walk ms per step"] = prof["walk_ms_per_step"]
                 res[f"{key} walk kernels per step"] = prof["walk_kernels_per_step"]
                 res[f"{key} top kernels ms per step"] = prof["top_kernels_ms_per_step"]
