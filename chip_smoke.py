@@ -55,7 +55,20 @@ Phases, in order; any failure exits non-zero before the result line:
    plain versions on both page types and timed, the single walk at the
    engine's cluster size and at the one fixed from the step's 40 tokens;
    and each decode row must come out bit-identical whether its
-   neighbours carry 0 or 4 drafts;
+   neighbours carry 0 or 4 drafts.  Then the shapes of the other dense
+   families: the GEMM at qwen3-1.7b's weights (D 2048, the tied
+   2048 x 151936 head) and mistral-7b's MLP and 32768-column head at row
+   counts 1, 8, 32, 40, 160, 520 and 3000 (bits at every count and alone,
+   warm and cold against ``torch.matmul``), the norm and ``add_rms_norm``
+   at D 2048 and ``qk_norm_rope_kv`` at H16 KV8 with norms and at H32 KV8
+   without (bf16 and int8 pages, bit for bit the unfused chain); both
+   walks at G 2 over 32 decode rows (contexts 64…1024) and flash at G 2;
+   and under mistral-7b's 4096-token window, both walks over 8 decode
+   rows at contexts 4500…6000 with and without a 512-token chunk at 5000
+   (bf16 and int8 pages, 64-page tables trimmed below each row's window
+   onto a trash page of NaN, so a read of a trimmed page would show) and
+   flash at S 6144, each timed against SDPA and the bound of the keys
+   inside the window;
 4. serve ``qwen3-8b`` at full width (36 layers, random bf16 weights from
    a seed) through the port's HTTP server at ``--max-model-len 4096``
    (phases 4-6 as the earlier slices served: ``--no-prefix-caching
@@ -126,7 +139,35 @@ Phases, in order; any failure exits non-zero before the result line:
     streams must equal their alone streams; the guided rows' wall ms a
     token and the guided host work a step are printed.
 
-After phase 10 it prints the serve legs' launches by shape: the GEMM by
+11. qwen3-1.7b at full width (28 layers, tied head, H16 on KV8: the walks
+    at G 2) through ``engine serve``'s ``engine_from_args`` at ``--max-batch-size 32
+    --no-token-budget``, bf16 pages at 4096 (split walk) and int8 pages at
+    2048 (single walk): 32 greedy requests (prompts of 128…768 token ids,
+    128 tokens each) at once with the decode defaults (``--decode-burst
+    8``, pipelined), again with ``--decode-burst 1``, then one at a time;
+    every stream must be the same all three ways, four must pass the
+    greedy check, and the engine's walk must have launched; the wall,
+    thread-CPU and device ms a token of each of 32 streams, the launches a
+    step and the graphs' capture seconds are printed;
+12. mistral-7b at full width (32 layers, no QK-norm, window 4096) at
+    ``--max-model-len 8192 --tokens-per-step 512`` on bf16 and int8 pages:
+    four prompts of 4500…6000 token ids chunked through the walks and 256
+    greedy tokens each on a burst, a per-token and a
+    ``--speculative-ngram 4`` engine; all three must serve the same
+    tokens, every token must pass a windowed greedy check, every decoding
+    sequence must hold at most ``ceil(4096 / 128) + 1 + span`` real pages
+    after each step, pages must have been freed by ``trim_window`` (the
+    count is printed) and the pool must drain; the decode step's wall,
+    CPU and device ms over the four long rows and at phase 4's shape,
+    beside qwen3-8b's there;
+13. the loader: ``save_hf_checkpoint`` writes mistral-7b's widths at 4
+    layers (~2.3 GB of bf16 safetensors) under ``build/``, ``engine serve
+    --load-hf DIR`` serves two SSE requests from it under the name
+    ``mistral-7b``; the loaded tensors must equal those written and the
+    tokens those of an engine built alike from the parameters in memory;
+    the directory is removed.
+
+After phase 13 it prints the serve legs' launches by shape: the GEMM by
 weight (K x N), the norms by width (the fused q/k kernel by heads and
 page type), flash by batch and length, the page walks by tokens a
 launch.
@@ -311,32 +352,45 @@ def check_close(out, ref, what: str, row_tol: float, head_dim: int) -> tuple[flo
     return diff.max().item(), row_err
 
 
-def check_flash(gen, B: int, S: int) -> dict:
+def check_flash(gen, B: int, S: int, H: int = 32, window: int | None = None) -> dict:
+    """Flash at ``[B, S]`` with ``H`` query heads on 8 KV heads (head_dim
+    128), causal, optionally within ``window``: against the plain version,
+    kernel / plain / SDPA ms and the bound (the pairs inside the window)."""
     import torch
 
     from fusioninfer_tpu_torch.ops import flash_attention as fa
 
-    H, KV, Hd = 32, 8, 128
+    KV, Hd = 8, 128
     dev = "cuda"
     q = torch.randn((B, S, H, Hd), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, KV, Hd), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, KV, Hd), generator=gen, device=dev).to(torch.bfloat16)
-    out = fa.flash_attention(q, k, v, causal=True)
-    ref = fa.reference_attention(q, k, v, causal=True)
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    ref = fa.reference_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    err, row_err = check_close(out, ref, f"flash B{B} S{S}", FLASH_ROW_TOL, Hd)
-    ms = time_graph(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = time_events(lambda: fa.reference_attention(q, k, v, causal=True))
+    tag = f"flash B{B} S{S} H{H}" + (f" window {window}" if window else "")
+    err, row_err = check_close(out, ref, tag, FLASH_ROW_TOL, Hd)
+    del ref
+    ms = time_graph(lambda: fa.flash_attention(q, k, v, causal=True, window=window))
+    plain_ms = time_events(lambda: fa.reference_attention(q, k, v, causal=True, window=window),
+                           reps=20 if window is None else 3, warmup=3 if window is None else 1)
     qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_library([(qT, kT, vT, {"is_causal": True})], H // KV)
-    pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
+    if window is None:
+        kw = {"is_causal": True}
+    else:  # query i sees keys (i - window, i]
+        i = torch.arange(S, device=dev)
+        kw = {"attn_mask": (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)}
+    library_ms = time_library([(qT, kT, vT, kw)], H // KV)
+    w = S if window is None else min(window, S)
+    pairs = B * H * (w * (w + 1) / 2 + (S - w) * w)  # causal (query, key) pairs in the window
     flops = 4 * pairs * Hd
     nbytes = 2 * (2 * B * S * H * Hd + 2 * B * S * KV * Hd)
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"  flash B{B} S{S}: abs err {err:.3e} row err {row_err:.3e} (bound {FLASH_ROW_TOL}) "
+    log(f"  {tag}: abs err {err:.3e} row err {row_err:.3e} (bound {FLASH_ROW_TOL}) "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {library_ms} ms "
         f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"shape": f"B{B} S{S} H{H} KV{KV} Hd{Hd}", "max_abs_err": err,
+    return {"shape": f"B{B} S{S} H{H} KV{KV} Hd{Hd}" + (f" window {window}" if window else ""),
+            "max_abs_err": err,
             "max_row_err": row_err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -377,21 +431,21 @@ def bit_rows(M: int, gen) -> list[int]:
     return sorted(r for r in rows if r < M)
 
 
-def check_invariant(fn, x_all, gen, what: str) -> None:
-    """``fn(x)`` at every row count of GEMM_ROWS must give each row the
+def check_invariant(fn, x_all, gen, what: str, rows=GEMM_ROWS) -> None:
+    """``fn(x)`` at every row count of ``rows`` must give each row the
     bits the largest count gives it, and the largest count each anchor
     row's bits of a one-row call (:func:`check_rows_invariant`)."""
-    check_rows_invariant(lambda lo, hi: fn(x_all[lo:hi]), x_all.shape[0], gen, what)
+    check_rows_invariant(lambda lo, hi: fn(x_all[lo:hi]), x_all.shape[0], gen, what, rows)
 
 
-def check_rows_invariant(run, M: int, gen, what: str) -> None:
+def check_rows_invariant(run, M: int, gen, what: str, rows=GEMM_ROWS) -> None:
     """``run(lo, hi)`` (rows lo..hi-1 → one output row each) at every row
-    count of GEMM_ROWS must give each row the bits the largest count gives
+    count of ``rows`` must give each row the bits the largest count gives
     it, and the largest count each anchor row's bits of a one-row call."""
     import torch
 
     full = run(0, M)
-    for m in GEMM_ROWS[:-1]:
+    for m in rows[:-1]:
         if not torch.equal(run(0, m), full[:m]):
             raise AssertionError(f"{what}: rows at M {m} differ from the same rows at M {M}")
     for r in bit_rows(M, gen):
@@ -406,7 +460,7 @@ def time_cold(fn, weights, reps: int) -> float:
     return time_graph(lambda: [fn(w) for w in weights], reps=reps, per_graph=1) / len(weights)
 
 
-def check_gemm(gen) -> dict:
+def check_gemm(gen, shapes=GEMM_SHAPES, row_counts=GEMM_ROWS) -> dict:
     """The GEMM kernel (``ops.gemm.matmul``) at each qwen3-8b projection
     shape and every row count of GEMM_ROWS: against the plain ``x @ w``
     (``check_close``, rows of N), row bits invariant across the row
@@ -419,15 +473,15 @@ def check_gemm(gen) -> dict:
     from fusioninfer_tpu_torch.ops import gemm
 
     out = {}
-    M_max = max(GEMM_ROWS)
-    for name, (K, N) in GEMM_SHAPES.items():
+    M_max = max(row_counts)
+    for name, (K, N) in shapes.items():
         w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5).to(torch.bfloat16)
         x_all = torch.randn((M_max, K), generator=gen, device="cuda").to(torch.bfloat16)
-        check_invariant(lambda x: gemm.matmul(x, w), x_all, gen, f"gemm {name}")
+        check_invariant(lambda x: gemm.matmul(x, w), x_all, gen, f"gemm {name}", row_counts)
         copies = [w] + [w.clone() for _ in range(-(-COLD_BYTES // (2 * K * N)) - 1)]
         splits = gemm.split_k(N, K)
         per_m = {}
-        for M in GEMM_ROWS:
+        for M in row_counts:
             x = x_all[:M]
             y = gemm.matmul(x, w)
             err, row_err = check_close(y, gemm.reference_matmul(x, w), f"gemm {name} M{M}",
@@ -448,7 +502,7 @@ def check_gemm(gen) -> dict:
         out[name] = {"K": K, "N": N, "splits": splits, "cold_copies": len(copies),
                      "rows": per_m}
         log(f"  gemm {name} K{K} N{N} (splits {splits}): rows bit-identical at "
-            f"M {', '.join(map(str, GEMM_ROWS))} and alone; tile (x2: pairs), cluster, "
+            f"M {', '.join(map(str, row_counts))} and alone; tile (x2: pairs), cluster, "
             f"kernel / torch.matmul ms warm, cold ({len(copies)} copies of the weight), "
             "bound: " + "; ".join(
                 f"M{M} {r['tile'][0]}x{r['tile'][1]}{'x2' if r['pair'] == 2 else ''} "
@@ -459,7 +513,7 @@ def check_gemm(gen) -> dict:
     return out
 
 
-def check_norm(gen) -> dict:
+def check_norm(gen, shapes=NORM_SHAPES, row_counts=GEMM_ROWS) -> dict:
     """The RMSNorm kernel at qwen3-8b's norm widths over the rows of every
     token count of GEMM_ROWS: against the plain version, row bits
     invariant across the counts, kernel ms against
@@ -472,13 +526,14 @@ def check_norm(gen) -> dict:
 
     out = {}
     eps = 1e-6
-    for name, (D, per_tok) in NORM_SHAPES.items():
+    for name, (D, per_tok) in shapes.items():
         w = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(torch.bfloat16)
-        x_all = torch.randn((max(GEMM_ROWS), per_tok, D), generator=gen,
+        x_all = torch.randn((max(row_counts), per_tok, D), generator=gen,
                             device="cuda").to(torch.bfloat16)
-        check_invariant(lambda x: rn.rms_norm(x, w, eps), x_all, gen, f"rms_norm {name}")
+        check_invariant(lambda x: rn.rms_norm(x, w, eps), x_all, gen, f"rms_norm {name}",
+                        row_counts)
         per_m = {}
-        for M in GEMM_ROWS:
+        for M in row_counts:
             x = x_all[:M]
             y = rn.rms_norm(x, w, eps)
             err, row_err = check_close(y, rn.reference_rms_norm(x, w, eps),
@@ -538,7 +593,7 @@ def chain_qk_norm_rope_kv(q, k, v, q_norm, k_norm, rope, eps, *, cache=None, lay
     return q, (k if k_out else None)
 
 
-def check_add_norm(gen) -> dict:
+def check_add_norm(gen, D: int = ADD_NORM_D, row_counts=GEMM_ROWS) -> dict:
     """``add_rms_norm`` at d_model over every row count of GEMM_ROWS: s and
     h bit for bit the unfused chain's (torch's add, the norm kernel), each
     row's bits the same at every count and alone, h within ``check_close``
@@ -547,16 +602,16 @@ def check_add_norm(gen) -> dict:
 
     from fusioninfer_tpu_torch.ops import rms_norm as rn
 
-    D, eps = ADD_NORM_D, 1e-6
-    M_max = max(GEMM_ROWS)
+    eps = 1e-6
+    M_max = max(row_counts)
     w = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(torch.bfloat16)
     x_all = torch.randn((M_max, D), generator=gen, device="cuda").to(torch.bfloat16)
     d_all = torch.randn((M_max, D), generator=gen, device="cuda").to(torch.bfloat16)
     check_rows_invariant(lambda lo, hi: torch.cat(
         rn.add_rms_norm(x_all[lo:hi], d_all[lo:hi], w, eps), dim=1), M_max, gen,
-        "add_rms_norm")
+        f"add_rms_norm D{D}", row_counts)
     per_m = {}
-    for M in GEMM_ROWS:
+    for M in row_counts:
         x, d = x_all[:M], d_all[:M]
         s, h = rn.add_rms_norm(x, d, w, eps)
         cs, ch = chain_add_rms_norm(x, d, w, eps)
@@ -580,7 +635,8 @@ def check_add_norm(gen) -> dict:
     return {"D": D, "rows": per_m}
 
 
-def check_qk_norm_rope_kv(gen, int8: bool) -> dict:
+def check_qk_norm_rope_kv(gen, int8: bool, heads=QK_HEADS, norms: bool = True,
+                          row_counts=GEMM_ROWS) -> dict:
     """``qk_norm_rope_kv`` at qwen3-8b's heads over every token count of
     GEMM_ROWS into layer 1 of a pool (bf16, or int8 with scales) that holds
     data, as ``fused_step`` calls it (no k out; every 11th token a padding
@@ -595,9 +651,9 @@ def check_qk_norm_rope_kv(gen, int8: bool) -> dict:
     from fusioninfer_tpu_torch.models.transformer import rope_tables
     from fusioninfer_tpu_torch.ops import rms_norm as rn
 
-    H, KV, Hd = QK_HEADS
+    H, KV, Hd = heads
     eps, L, ps, layer = 1e-6, 2, PAGE, 1
-    M_max = max(GEMM_ROWS)
+    M_max = max(row_counts)
     n_pages = -(-M_max // ps) + 1
     trash = n_pages - 1
 
@@ -607,6 +663,8 @@ def check_qk_norm_rope_kv(gen, int8: bool) -> dict:
     q_all, k_all, v_all = randn(M_max, H, Hd), randn(M_max, KV, Hd), randn(M_max, KV, Hd)
     qn = (1 + 0.1 * torch.randn((Hd,), generator=gen, device="cuda")).to(torch.bfloat16)
     kn = (1 + 0.1 * torch.randn((Hd,), generator=gen, device="cuda")).to(torch.bfloat16)
+    if not norms:  # a model without QK-norm (mistral-7b): RoPE and the page write only
+        qn = kn = None
     pos_all = torch.randint(0, 32768, (M_max,), generator=gen, device="cuda")
     cos_all, sin_all = rope_tables(pos_all, Hd, 1e6)  # [M, 1, Hd / 2], a row a token
     perm = torch.randperm(trash, generator=gen, device="cuda")
@@ -644,10 +702,11 @@ def check_qk_norm_rope_kv(gen, int8: bool) -> dict:
             rows.append(t[:, pg, sl].movedim(0, 1).reshape(hi - lo, -1))
         return torch.cat([r.contiguous().view(torch.uint8) for r in rows], dim=1)
 
-    tag = f"qk_norm_rope_kv {'int8' if int8 else 'bf16'}"
-    check_rows_invariant(run, M_max, gen, tag)
+    tag = (f"qk_norm_rope_kv {'int8' if int8 else 'bf16'} H{H} KV{KV}"
+           + ("" if norms else " without norms"))
+    check_rows_invariant(run, M_max, gen, tag, row_counts)
     per_m = {}
-    for M in GEMM_ROWS:
+    for M in row_counts:
         ours, chain, plain = pools(), pools(), pools()
         for k_out in (False, True):  # as fused_step calls it, then as prefill does
             q, k = call(rn.qk_norm_rope_kv, 0, M, ours, k_out=k_out)
@@ -666,16 +725,20 @@ def check_qk_norm_rope_kv(gen, int8: bool) -> dict:
         page_bytes = (Hd + 4) if int8 else 2 * Hd  # a (token, head)'s page row
         nbytes = M * (2 * H * Hd * 2 + 2 * KV * Hd * 2 + 2 * KV * page_bytes
                       + 2 * (Hd // 2) * 4 + 16) + 2 * Hd * 2
-        bound_ms, bound_by = bound(M * (H + KV) * Hd * 8.0, nbytes)
+        if not norms:
+            nbytes -= 2 * Hd * 2
+        bound_ms, bound_by = bound(M * (H + KV) * Hd * (8.0 if norms else 4.0), nbytes)
         per_m[M] = {"max_abs_err": max(err_q, err_k), "max_row_err": max(row_q, row_k),
                     "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"  {tag} H{H} KV{KV} Hd{Hd}: q, k and pages bit for bit the chain's (rms_norm "
-        "kernel + rotate + scatter_kv), every token the same at every count and alone; "
+    log(f"  {tag} Hd{Hd}: q, k and pages bit for bit the chain's ("
+        + ("rms_norm kernel + " if norms else "") + "rotate + scatter_kv), every token the "
+        "same at every count and alone; "
         "kernel / chain / bound ms: " + "; ".join(
             f"M{M} {r['ms']:.4f} / {r['chain_ms']:.4f} / {r['bound_ms']:.4f}"
             for M, r in per_m.items()))
-    return {"H": H, "KV": KV, "Hd": Hd, "pages": "int8" if int8 else "bf16", "rows": per_m}
+    return {"H": H, "KV": KV, "Hd": Hd, "pages": "int8" if int8 else "bf16", "norms": norms,
+            "rows": per_m}
 
 
 def paged_pool(gen, rows, int8: bool, L: int = 2, mp: int = 32):
@@ -717,52 +780,62 @@ def ragged_batch(rows, pad: int = 0):
     return (*(t.cuda() for t in (starts, q_begins, q_lens)), int(q_lens.sum()) + pad)
 
 
-def attention_cost(rows, int8: bool) -> tuple[float, float]:
+def attention_cost(rows, int8: bool, group: int = GROUP,
+                   window: int | None = None) -> tuple[float, float]:
     """(FLOP, bytes) of causal paged attention for rows ``[(start, n)]``:
     each live K/V byte read once (int8 pages: Hd codes + one f32 scale
-    per token and head), each query read and each output written once."""
-    H = KV_HEADS * GROUP
-    keys = sum(s + n for s, n in rows)  # live keys per KV head
-    pairs = sum(n * s + n * (n + 1) / 2 for s, n in rows)  # (query, key) pairs
+    per token and head), each query read and each output written once;
+    with ``window``, only the keys some query of the row sees."""
+    H = KV_HEADS * group
+    if window is None:
+        keys = sum(s + n for s, n in rows)  # live keys per KV head
+        pairs = sum(n * s + n * (n + 1) / 2 for s, n in rows)  # (query, key) pairs
+    else:  # the query at p sees keys (p - window, p]
+        keys = sum(s + n - max(0, s - window + 1) for s, n in rows)
+        pairs = sum(min(p + 1, window) for s, n in rows for p in range(s, s + n))
     T = sum(n for _, n in rows)
     per_key = HEAD_DIM + 4 if int8 else 2 * HEAD_DIM
     return 4 * pairs * H * HEAD_DIM, 2 * keys * KV_HEADS * per_key + 2 * T * H * HEAD_DIM * 2
 
 
-def sdpa_calls(q_flat, kp, vp, tables, rows):
+def sdpa_calls(q_flat, kp, vp, tables, rows, window: int | None = None):
     """The library yardstick's calls: one SDPA per row over that row's
-    live keys, gathered from the bf16 pages of one layer beforehand (the
-    gather is not timed); q_flat ``[T, H, Hd]`` holds the rows' tokens in
-    order."""
+    live keys (with ``window``, those some query of the row sees),
+    gathered from the bf16 pages of one layer beforehand (the gather is
+    not timed); q_flat ``[T, H, Hd]`` holds the rows' tokens in order."""
     import torch
 
     calls, t0 = [], 0
     for r, (start, n) in enumerate(rows):
         n_keys = start + n
+        lo = 0 if window is None else max(0, start - window + 1)
         pages = tables[r, : -(-n_keys // PAGE)].long()
-        k_r = kp[:, pages].reshape(KV_HEADS, -1, HEAD_DIM)[None, :, :n_keys]
-        v_r = vp[:, pages].reshape(KV_HEADS, -1, HEAD_DIM)[None, :, :n_keys]
+        k_r = kp[:, pages].reshape(KV_HEADS, -1, HEAD_DIM)[None, :, lo:n_keys]
+        v_r = vp[:, pages].reshape(KV_HEADS, -1, HEAD_DIM)[None, :, lo:n_keys]
         q_r = q_flat[t0: t0 + n].transpose(0, 1)[None]
         kw = {}
-        if n > 1:  # token i of the row sees keys [0, start + i]
-            kw["attn_mask"] = (torch.arange(n_keys, device=q_flat.device)[None, :]
-                               <= start + torch.arange(n, device=q_flat.device)[:, None])
+        if n > 1:  # token i of the row sees keys [0, start + i], or its window's
+            key = lo + torch.arange(n_keys - lo, device=q_flat.device)[None, :]
+            pos = start + torch.arange(n, device=q_flat.device)[:, None]
+            kw["attn_mask"] = (key <= pos) & (
+                True if window is None else key > pos - window)
         calls.append((q_r, k_r.contiguous(), v_r.contiguous(), kw))
         t0 += n
     return calls
 
 
 def measure(name: str, shape: str, kern, plain, row_tol: float, rows, int8: bool,
-            library) -> dict:
+            library, group: int = GROUP, window: int | None = None,
+            plain_reps: int = 20) -> dict:
     """Kernel against plain version (``check_close``), then kernel ms (CUDA
     graph), plain ms, library ms (``library()`` gives the SDPA calls, or
     None where no PyTorch call computes the same function) and bound."""
     err, row_err = check_close(kern(), plain(), f"{name} [{shape}]", row_tol, HEAD_DIM)
     ms = time_graph(kern)
-    plain_ms = time_events(plain, reps=20, warmup=2)
+    plain_ms = time_events(plain, reps=plain_reps, warmup=min(2, plain_reps))
     calls = library()
-    library_ms = time_library(calls, GROUP) if calls is not None else None
-    bound_ms, bound_by = bound(*attention_cost(rows, int8))
+    library_ms = time_library(calls, group) if calls is not None else None
+    bound_ms, bound_by = bound(*attention_cost(rows, int8, group, window))
     log(f"  {name} [{shape}]: abs err {err:.3e} row err {row_err:.3e} (bound {row_tol}) "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {library_ms} ms "
         f"bound {bound_ms:.4f} ms ({bound_by})")
@@ -1024,7 +1097,8 @@ def check_split_serve(gen, int8: bool) -> dict:
         (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[1], vp[1], tables, rows)))
 
 
-def plain_in_pieces(plain_walk, q, kp, vp, tables, rows, scales, piece: int = 64):
+def plain_in_pieces(plain_walk, q, kp, vp, tables, rows, scales, piece: int = 64,
+                    window: int | None = None):
     """The plain walk over rows ``[(start, n)]`` (tokens in row order),
     computed ``piece`` tokens at a time as rows of their own: a token's
     plain result depends only on its position and its row's pages, and a
@@ -1037,7 +1111,8 @@ def plain_in_pieces(plain_walk, q, kp, vp, tables, rows, scales, piece: int = 64
             m = min(piece, n - i)
             one = torch.ones(1, dtype=torch.int32, device="cuda")
             outs.append(plain_walk(q[t0 + i: t0 + i + m], kp, vp, tables[r: r + 1],
-                                   one * (start + i), one * 0, one * m, *scales))
+                                   one * (start + i), one * 0, one * m, *scales,
+                                   window=window))
         t0 += n
     return torch.cat(outs)
 
@@ -1566,14 +1641,41 @@ def drive_server(engine, prompts) -> list[dict]:
     return results
 
 
-def plain_forward(cfg, params, tokens, int8_from: int | None = None):
-    """Full-sequence causal forward → f32 logits, with the plain versions
-    in place of every kernel (``reference_attention`` for flash, ``x @ w``
-    for the GEMM, the plain RMSNorm) and no pages: no hand-written kernel
-    runs in it.  With ``int8_from``, query rows from that position on
-    attend over K/V passed through ``kv_quantize`` and back, as an engine
-    with int8 pages decodes them (its prefill rows attend over the exact
-    K/V)."""
+def plain_attention(q, k, v, window: int | None, block: int = 1024):
+    """``reference_attention``'s math (GQA, f32 scores and softmax, causal,
+    within ``window``) over query blocks of ``block`` rows, each against
+    the keys it can see, so a sequence of thousands of tokens never holds
+    its whole ``[S, S]`` score matrix."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops.flash_attention import NEG_INF
+
+    B, S, H, Hd = q.shape
+    KV = k.shape[2]
+    outs = []
+    for a in range(0, S, block):
+        b = min(S, a + block)
+        lo = 0 if window is None else max(0, a - window + 1)
+        qb = q[:, a:b].reshape(B, b - a, KV, H // KV, Hd).float()
+        s = torch.einsum("bskgd,btkd->bkgst", qb, k[:, lo:b].float()) / (Hd ** 0.5)
+        qpos = torch.arange(a, b, device=q.device)[:, None]
+        kpos = torch.arange(lo, b, device=q.device)[None, :]
+        seen = (kpos <= qpos) & (True if window is None else kpos > qpos - window)
+        p = torch.softmax(torch.where(seen, s, torch.full_like(s, NEG_INF)), dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", p, v[:, lo:b].float())
+        outs.append(out.reshape(B, b - a, H * Hd).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def plain_forward(cfg, params, tokens, int8_from: int | None = None, logits_from: int = 0):
+    """Full-sequence causal forward → f32 logits of the rows from
+    ``logits_from`` on, with the plain versions in place of every kernel
+    (``reference_attention`` for flash, or :func:`plain_attention` past
+    2048 tokens, ``x @ w`` for the GEMM, the plain RMSNorm) and no pages:
+    no hand-written kernel runs in it.  With ``int8_from``, query rows
+    from that position on attend over K/V passed through ``kv_quantize``
+    and back, as an engine with int8 pages decodes them (its prefill rows
+    attend over the exact K/V)."""
     import torch
     import torch.nn.functional as F
 
@@ -1600,16 +1702,25 @@ def plain_forward(cfg, params, tokens, int8_from: int | None = None):
         if cfg.qk_norm:
             q, k = norm(q, layer["q_norm"], eps), norm(k, layer["k_norm"], eps)
         q, k = tf.rotate(q, rope), tf.rotate(k, rope)
-        attn = reference_attention(q, k, v, causal=True, window=cfg.sliding_window)
+
+        def attend(k, v):
+            if S > 2048:
+                return plain_attention(q, k, v, cfg.sliding_window)
+            return reference_attention(q, k, v, causal=True, window=cfg.sliding_window)
+
+        attn = attend(k, v) if int8_from != 0 else None
         if int8_from is not None:
-            attn8 = reference_attention(q, dequant(k), dequant(v), causal=True,
-                                        window=cfg.sliding_window)
-            attn = torch.cat([attn[:, :int8_from], attn8[:, int8_from:]], dim=1)
+            attn8 = attend(dequant(k), dequant(v))
+            attn = attn8 if attn is None else torch.cat(
+                [attn[:, :int8_from], attn8[:, int8_from:]], dim=1)
         x = x + mm(attn, layer["wo"])
         h = norm(x, layer["mlp_norm"], eps)
         x = x + mm(F.silu(mm(h, layer["w_gate"])) * mm(h, layer["w_up"]), layer["w_down"])
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return mm(norm(x, params["final_norm"], eps), head).float()
+    return mm(norm(x[:, logits_from:], params["final_norm"], eps), head).float()
+
+
+GREEDY_TOL = 0.25
 
 
 def check_greedy(engine, results, paged_prompt: bool = False) -> float:
@@ -1619,36 +1730,39 @@ def check_greedy(engine, results, paged_prompt: bool = False) -> float:
     engine's pages are int8, and for the prompt rows too with
     ``paged_prompt``, where the prompt was computed by the page walk over
     the pages: chunks and cache-hit suffixes): the served token's logit
-    within ``tol`` of the row's max (bf16 kernels and the f32-math plain
+    within ``GREEDY_TOL`` of the row's max (bf16 kernels and the f32-math plain
     attention round differently, and random weights leave near-ties).
     Returns the largest gap seen."""
-    import torch
-
     from fusioninfer_tpu_torch.engine.tokenizer import ByteTokenizer
 
-    tol = 0.25
-    worst = 0.0
     tok = ByteTokenizer()
-    for r in results:
-        if r["token_ids"] is None:
-            continue
-        prompt = tok.encode(r["prompt"])
-        seq = prompt + r["token_ids"]
-        x = torch.tensor([seq[:-1]], device=engine.device)
-        with torch.no_grad():
-            int8_from = (0 if paged_prompt else len(prompt)) if engine.cache_cfg.quantized \
-                else None
-            logits = plain_forward(engine.cfg, engine.params, x, int8_from)
-            logits = logits[0, len(prompt) - 1:]
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite logits in the reference forward")
-        chosen = torch.tensor(r["token_ids"], device=logits.device)
-        gap = (logits.max(dim=-1).values
-               - logits.gather(1, chosen[:, None])[:, 0]).max().item()
-        worst = max(worst, gap)
-        if gap > tol:
-            raise AssertionError(f"served token {gap:.3f} below the greedy max (tol {tol})")
-    return worst
+    return max([check_greedy_ids(engine, tok.encode(r["prompt"]), r["token_ids"],
+                                 paged_prompt)
+                for r in results if r["token_ids"] is not None], default=0.0)
+
+
+def check_greedy_ids(engine, prompt: list[int], token_ids: list[int],
+                     paged_prompt: bool = False) -> float:
+    """``token_ids`` served after ``prompt`` must each be the greedy choice
+    of :func:`plain_forward` (see :func:`check_greedy`) within GREEDY_TOL
+    → the largest gap."""
+    import torch
+
+    seq = prompt + token_ids
+    x = torch.tensor([seq[:-1]], device=engine.device)
+    with torch.no_grad():
+        int8_from = (0 if paged_prompt else len(prompt)) if engine.cache_cfg.quantized \
+            else None
+        logits = plain_forward(engine.cfg, engine.params, x, int8_from,
+                               logits_from=len(prompt) - 1)[0]
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits in the reference forward")
+    chosen = torch.tensor(token_ids, device=logits.device)
+    gap = (logits.max(dim=-1).values
+           - logits.gather(1, chosen[:, None])[:, 0]).max().item()
+    if gap > GREEDY_TOL:
+        raise AssertionError(f"served token {gap:.3f} below the greedy max (tol {GREEDY_TOL})")
+    return gap
 
 
 def warm_up(engine, prompts) -> None:
@@ -2407,8 +2521,9 @@ def serve_a1_case(engine, case: str) -> tuple[dict, int]:
     return out, beside
 
 
-def profile_stepping(engine, n_tokens: int = 32, gemm_ab: bool = False) -> dict:
-    """Eight greedy requests (prompts of 100…1500 tokens) decoding
+def profile_stepping(engine, n_tokens: int = 32, gemm_ab: bool = False,
+                     lens=(100, 300, 500, 700, 900, 1100, 1300, 1500)) -> dict:
+    """Greedy requests (by default eight, prompts of 100…1500 tokens) decoding
     together, once the batch runs and its graphs exist: wall ms and the
     stepping thread's CPU ms per token of each stream (one batch step
     per token) over ``n_tokens`` tokens a stream, then over as many more
@@ -2422,7 +2537,6 @@ def profile_stepping(engine, n_tokens: int = 32, gemm_ab: bool = False) -> dict:
     from fusioninfer_tpu_torch.engine.engine import Request
     from fusioninfer_tpu_torch.engine.sampler import SamplingParams
 
-    lens = [100, 300, 500, 700, 900, 1100, 1300, 1500]
     rids = [f"burst-prof{i}" for i in range(len(lens))]
     for i, (rid, n) in enumerate(zip(rids, lens)):
         engine.add_request(Request(rid, [3 + (7 * j + i) % 250 for j in range(n)],
@@ -2940,6 +3054,569 @@ def serve_guided_leg(engine, card: str) -> dict:
             "sched": engine.sched.snapshot()}
 
 
+# -- phase 3 additions: the shapes of qwen3-1.7b and mistral-7b ----------------
+
+# the projections of qwen3-1.7b and mistral-7b beside qwen3-8b's, (K, N) by
+# weight (mistral-7b's wq / wk / wv / wo are qwen3-8b's shapes)
+GEMM_SHAPES_NEW = {"1.7b wq/wo": (2048, 2048), "1.7b wk/wv": (2048, 1024),
+                   "1.7b gate/up": (2048, 6144), "1.7b down": (6144, 2048),
+                   "1.7b tied head": (2048, 151936), "7b gate/up": (4096, 14336),
+                   "7b down": (14336, 4096), "7b lm_head": (4096, 32768)}
+# row counts: a decode row, 8 and 32 decode slots, 8 spec windows of 5, a
+# 160-token chunk, a fused step, a long prefill
+GEMM_ROWS_NEW = (1, 8, 32, 40, 160, 520, 3000)
+# the walks at G 2 (qwen3-1.7b, H16 on KV8): 32 decode rows, contexts 64…1024
+G2_CTX = tuple(64 + (960 * i) // 31 for i in range(32))
+# the window of mistral-7b, its 8192-token tables, decode rows past the
+# window and a 512-token chunk starting at 5000
+WINDOW = 4096
+WINDOW_MP = 64
+WINDOW_CTX = (4500, 4700, 4900, 5100, 5300, 5500, 5800, 6000)
+WINDOW_CHUNK = (5000, 512)
+
+
+def check_walks_g2(gen, split: bool, int8: bool) -> dict:
+    """A ragged walk at G 2 (16 query heads on 8 KV heads) over 32 decode
+    rows (contexts 64…1024, ps 128) against its plain version, timed
+    beside SDPA and the bound: the split walk on 32-page tables (the 4096
+    engine's), the single walk on 16-page tables (the 2048 engine's) at
+    the cluster size a 32-row engine fixes."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    layer, G = 1, 2
+    mp = 32 if split else 16
+    rows = [(c - 1, 1) for c in G2_CTX]
+    kp, vp, ks, vs, tables = paged_pool(gen, rows, int8, mp=mp)
+    *ragged, T = ragged_batch(rows)
+    desc = (tables, *ragged)
+    q = torch.randn((T, KV_HEADS * G, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    sc = (ks, vs) if int8 else ()
+    lsc = (ks[layer], vs[layer]) if int8 else ()
+    cl = pa.engine_cluster_size(len(rows), KV_HEADS, mp, "cuda")
+    if split:
+        def kern():
+            return pa.ragged_paged_attention_kvsplit(q, kp, vp, *desc, *sc, layer=layer)
+        plain_walk = pa.reference_ragged_paged_attention_kvsplit
+    else:
+        def kern():
+            return pa.ragged_paged_attention(q, kp, vp, *desc, *sc, layer=layer, cluster=cl)
+        plain_walk = pa.reference_ragged_paged_attention
+    name = ("paged split-KV" if split else f"paged single walk CL {cl}") + " G2" + (
+        " int8" if int8 else "")
+    shape = (f"T{T}: 32 decode rows ctx 64..1024, H16 KV8, mp {mp}, ps 128"
+             + (", int8 pages" if int8 else ""))
+    return measure(name, shape, kern, lambda: plain_walk(q, kp[layer], vp[layer], *desc, *lsc),
+                   PAGED_ROW_TOL, rows, int8,
+                   (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[layer], vp[layer],
+                                                                   tables, rows)),
+                   group=G)
+
+
+def check_walks_window(gen, split: bool, int8: bool, fused: bool) -> dict:
+    """A ragged walk under mistral-7b's 4096-token window: 8 decode rows at
+    contexts 4500…6000 (and with ``fused`` a 512-token chunk from 5000,
+    T520), 64-page tables, against its plain version, timed beside SDPA
+    and the bound (keys inside the window only).  The kernel reads
+    trimmed tables, as a windowed engine's are: each row's entries below
+    the page of its first visible key point to the trash page, whose K/V
+    (int8 pages: whose scales) are NaN, so a walk that read one would
+    fail ``check_close``; the plain version reads the untrimmed tables."""
+    import torch
+
+    from fusioninfer_tpu_torch.ops import paged_attention as pa
+
+    layer = 1
+    rows = [(c - 1, 1) for c in WINDOW_CTX] + ([WINDOW_CHUNK] if fused else [])
+    kp, vp, ks, vs, tables = paged_pool(gen, rows, int8, mp=WINDOW_MP)
+    *ragged, T = ragged_batch(rows)
+    trash = kp.shape[2] - 1
+    trimmed = tables.clone()
+    for r, (start, _) in enumerate(rows):
+        trimmed[r, : max(0, start - WINDOW + 1) // PAGE] = trash
+    nan = float("nan")
+    if int8:
+        ks_n, vs_n = ks.clone(), vs.clone()
+        ks_n[:, :, trash] = nan
+        vs_n[:, :, trash] = nan
+        pool, sc, lsc = (kp, vp), (ks_n, vs_n), (ks[layer], vs[layer])
+    else:
+        kp_n, vp_n = kp.clone(), vp.clone()
+        kp_n[:, :, trash] = nan
+        vp_n[:, :, trash] = nan
+        pool, sc, lsc = (kp_n, vp_n), (), ()
+    q = torch.randn((T, KV_HEADS * GROUP, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    cl = pa.engine_cluster_size(8, KV_HEADS, WINDOW_MP, "cuda")
+    if split:
+        def kern():
+            return pa.ragged_paged_attention_kvsplit(q, *pool, trimmed, *ragged, *sc,
+                                                     window=WINDOW, layer=layer)
+        plain_walk = pa.reference_ragged_paged_attention_kvsplit
+    else:
+        def kern():
+            return pa.ragged_paged_attention(q, *pool, trimmed, *ragged, *sc, window=WINDOW,
+                                             layer=layer, cluster=cl)
+        plain_walk = pa.reference_ragged_paged_attention
+    name = ("paged split-KV" if split else f"paged single walk CL {cl}") + (
+        f" window {WINDOW}") + (" int8" if int8 else "")
+    shape = (f"T{T}: 8 decode rows ctx 4500..6000" + (" + a 512-token chunk at 5000"
+                                                      if fused else "")
+             + f", mp {WINDOW_MP}, trimmed tables, NaN trash page"
+             + (", int8 pages" if int8 else ""))
+    return measure(name, shape, kern,
+                   lambda: plain_in_pieces(plain_walk, q, kp[layer], vp[layer], tables, rows,
+                                           lsc, window=WINDOW),
+                   PAGED_ROW_TOL, rows, int8,
+                   (lambda: None) if int8 else (lambda: sdpa_calls(q, kp[layer], vp[layer],
+                                                                   tables, rows, WINDOW)),
+                   window=WINDOW, plain_reps=3)
+
+
+def check_new_shapes(gen) -> dict:
+    """Phase 3's cases at the new models' shapes: the GEMM at qwen3-1.7b's
+    and mistral-7b's weights, the norm kernels at D 2048, the q/k kernel
+    at H16 KV8 with norms and at H32 KV8 without (bf16 and int8 pages),
+    the walks at G 2, flash at G 2 and under the 4096 window, the walks
+    under the window over trimmed tables."""
+    gemm = check_gemm(gen, GEMM_SHAPES_NEW, GEMM_ROWS_NEW)
+    norms = {"rms_norm": check_norm(gen, {"d_model 2048": (2048, 1)}, GEMM_ROWS_NEW),
+             "add_rms_norm": check_add_norm(gen, 2048, GEMM_ROWS_NEW)}
+    for int8 in (False, True):
+        pages = "int8" if int8 else "bf16"
+        norms[f"qk_norm_rope_kv_h16_{pages}"] = check_qk_norm_rope_kv(
+            gen, int8, (16, 8, 128), True, GEMM_ROWS_NEW)
+        norms[f"qk_rope_kv_h32_no_norm_{pages}"] = check_qk_norm_rope_kv(
+            gen, int8, (32, 8, 128), False, GEMM_ROWS_NEW)
+    walks_g2 = {f"{'split' if split else 'single'}_{'int8' if int8 else 'bf16'}":
+                check_walks_g2(gen, split, int8) for int8 in (False, True)
+                for split in (False, True)}
+    walks_window = {f"{'split' if split else 'single'}_{'int8' if int8 else 'bf16'}_"
+                    f"{'fused' if fused else 'decode'}": check_walks_window(gen, split, int8,
+                                                                            fused)
+                    for int8 in (False, True) for split in (False, True)
+                    for fused in (False, True)}
+    flash = {"g2": check_flash(gen, 1, 1024, H=16),
+             "window": check_flash(gen, 1, 6144, H=32, window=WINDOW)}
+    return {"gemm": gemm, "norms": norms, "walks_g2": walks_g2, "walks_window": walks_window,
+            "flash": flash}
+
+
+# -- phases 11-13: the other dense model families --------------------------------
+
+def release_device() -> None:
+    """Free the device memory of dropped engines: engines sit in reference
+    cycles (servers' threads, patched methods) that only the cycle
+    collector frees, and the caching allocator keeps their blocks until
+    emptied."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
+# phase 11: qwen3-1.7b at the JAX bench's batch, 32 greedy streams
+G2_BATCH = 32
+G2_PROMPTS = tuple(128 + (640 * i) // (G2_BATCH - 1) for i in range(G2_BATCH))
+G2_TOKENS = 128
+G2_CHECKED = (0, 10, 21, 31)  # streams held against the plain forward
+# phase 12: mistral-7b past its window
+WINDOW_PROMPTS = (4500, 5000, 5500, 6000)
+WINDOW_TOKENS = 256
+WINDOW_MAX_LEN = 8192
+# phase 13: the loader, mistral-7b's widths at 4 layers
+LOADER_LAYERS = 4
+LOADER_PROMPTS = ("A checkpoint written by the port and served from its files: ",
+                  "Loaded tensors must give the tokens of the tensors in memory. " * 6)
+
+
+def random_prompts(lens, vocab: int, salt: int) -> list[list[int]]:
+    """Token ids drawn from the seed, one prompt of each length."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED * 1_000 + salt)
+    return [torch.randint(3, vocab, (n,), generator=g).tolist() for n in lens]
+
+
+def run_streams(engine, prompts, max_tokens: int, alone: bool = False,
+                after_step=None, hook_when=None, hook=None) -> dict[int, list[int]]:
+    """Serve greedy requests of ``prompts`` on ``engine`` through
+    :meth:`NativeEngine.step` until drained → ``{i: tokens}``; ``alone``
+    serves them one at a time.  ``after_step(engine)`` runs after every
+    step; ``hook(engine)`` (returning the step outputs it caused) runs once,
+    the first time ``hook_when(engine)`` holds."""
+    from fusioninfer_tpu_torch.engine.engine import Request
+    from fusioninfer_tpu_torch.engine.sampler import SamplingParams
+
+    out: dict[int, list[int]] = {i: [] for i in range(len(prompts))}
+
+    def take(outputs):
+        for o in outputs:
+            if o.finish_reason and o.finish_reason.startswith("error"):
+                raise AssertionError(f"{o.request_id}: {o.finish_reason}")
+            out[int(o.request_id.rsplit("-", 1)[1])].append(o.token)
+
+    def drain():
+        nonlocal hook
+        for _ in range(20_000):
+            if not engine.has_work():
+                return
+            take(engine.step())
+            if after_step is not None:
+                after_step(engine)
+            if hook is not None and hook_when(engine):
+                take(hook(engine))
+                hook = None
+        raise AssertionError("the engine did not drain")
+
+    groups = [[i] for i in range(len(prompts))] if alone else [list(range(len(prompts)))]
+    for group in groups:
+        for i in group:
+            engine.add_request(Request(f"s-{i}", list(prompts[i]),
+                                       SamplingParams(temperature=0.0, max_tokens=max_tokens)))
+        drain()
+    for i, toks in out.items():
+        if len(toks) != max_tokens:
+            raise AssertionError(f"stream {i}: {len(toks)} tokens, expected {max_tokens}")
+    return out
+
+
+def profile_steps(engine, n_steps: int = 8) -> tuple[dict, list]:
+    """``n_steps`` engine steps timed (wall ms and the thread's CPU ms a
+    step), then ``n_steps`` more under ``torch.profiler`` (device ms and
+    kernel launches a step) → ``(figures, the steps' outputs)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    outputs = []
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), time.thread_time()
+    for _ in range(n_steps):
+        outputs += engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    cpu_ms = (time.thread_time() - c0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            outputs += engine.step()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n_steps
+    return ({"wall_ms_per_step": wall_ms, "cpu_ms_per_step": cpu_ms,
+             "device_ms_per_step": device_ms,
+             "kernels_per_step": kernel_launches(kernels) / n_steps,
+             "device_busy_share": device_ms / wall_ms if device_ms else None}, outputs)
+
+
+def leg_launches(run) -> tuple[object, dict]:
+    """``run()`` with every launch count set to 0 just before → (its result,
+    ``{"launches", "launches_by_shape"}`` read just after)."""
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    dispatch.reset_launches()
+    res = run()
+    return res, {"launches": dispatch.launches(),
+                 "launches_by_shape": dispatch.launches(by_shape=True)}
+
+
+def serve_g2_leg(params, kv_dtype: str, max_len: int, card: str) -> dict:
+    """qwen3-1.7b at full width (28 layers, tied head, H16 on KV8) and
+    ``--max-batch-size 32`` through ``engine serve``'s ``engine_from_args``, on
+    ``kv_dtype`` pages at ``max_len``: 32 greedy requests (prompts of
+    128…768 token ids, G2_TOKENS tokens each) served at once with the CLI's
+    decode defaults (bursts of 8, pipelined, prefix caching) and
+    ``--no-token-budget`` (every prompt a flash prefill, as alone), again
+    with ``--decode-burst 1``, then one at a time on a burst engine without
+    prefix caching (so no alone prompt hits the cache): every stream must
+    be the same all three ways, G2_CHECKED streams must pass the greedy
+    check against :func:`plain_forward`, and the walk the engine fixed
+    from ``max_len`` must have launched.  Then the decode profile of the
+    32 streams (:func:`profile_stepping`) on the burst and per-token
+    engines and the graphs' capture seconds."""
+    import torch
+
+    from fusioninfer_tpu_torch import cli
+    from fusioninfer_tpu_torch.engine.server import engine_from_args
+    from fusioninfer_tpu_torch.models.config import get_preset
+
+    cfg = get_preset("qwen3-1.7b")
+    prompts = random_prompts(G2_PROMPTS, cfg.vocab_size, salt=11)
+    tag = f"{'int8' if kv_dtype == 'int8' else 'bf16'}_{max_len}"
+    base = ["engine", "serve", "qwen3-1.7b", "--max-batch-size", str(G2_BATCH),
+            "--max-model-len", str(max_len), "--no-token-budget"] + (
+        ["--kv-cache-dtype", "int8"] if kv_dtype == "int8" else [])
+    walk = "ragged_paged_attention" + ("_kvsplit" if max_len > 2048 else "") + (
+        "_int8" if kv_dtype == "int8" else "")
+    out: dict = {"tag": tag, "walk": walk}
+    streams = {}
+    for kind, extra in (("burst", []), ("step", ["--decode-burst", "1"]),
+                        ("alone", ["--no-prefix-caching"])):
+        engine = engine_from_args(cli.build_parser().parse_args(base + extra), params=params)
+        if (engine.cfg.n_heads // engine.cfg.n_kv_heads != 2 or engine.max_batch_size != G2_BATCH
+                or engine.burst_steps != (1 if kind == "step" else BURST)
+                or engine.token_budget is not None or (engine.kv_splits == 0) != (max_len <= 2048)):
+            raise AssertionError(f"qwen3-1.7b {tag} {kind}: unexpected engine")
+        t0 = time.perf_counter()
+        streams[kind], leg = leg_launches(
+            lambda: run_streams(engine, prompts, G2_TOKENS, alone=kind == "alone"))
+        wall = time.perf_counter() - t0
+        if leg["launches"][walk] == 0:
+            raise AssertionError(f"qwen3-1.7b {tag} {kind}: no {walk} launch at G 2: "
+                                 f"{leg['launches']}")
+        out[kind] = {**leg, "wall_s": wall,
+                     "captures": [dict(vars(c)) for c in
+                                  (engine.bursts.captures if engine.bursts else [])]}
+        if kind == "burst":
+            out["greedy_gap"] = max(check_greedy_ids(engine, prompts[i], streams[kind][i])
+                                    for i in G2_CHECKED)
+        if kind != "alone":
+            out[kind]["profile"] = profile_stepping(engine, n_tokens=16, lens=G2_PROMPTS)
+            p = out[kind]["profile"]
+            log(f"  qwen3-1.7b {tag}, {kind} engine: {G2_BATCH} x {G2_TOKENS} tokens in "
+                f"{wall:.3f} s; decode of {G2_BATCH} streams: {p['wall_ms_per_token']:.3f} ms wall, "
+                f"{p['cpu_ms_per_token']:.3f} ms thread CPU, {p['device_ms_per_token']:.3f} ms "
+                f"device a token of each stream (busy {p['device_busy_share']:.3f}), "
+                f"{p['kernels_per_token']:.1f} kernel launches a step"
+                + (f"; captures " + ", ".join(f"span {c.span} {c.mode} {c.seconds:.2f} s"
+                                              for c in engine.bursts.captures)
+                   if engine.bursts else "") + f" on {card}")
+        del engine
+        release_device()
+    for kind in ("step", "alone"):
+        for i in range(G2_BATCH):
+            if streams[kind][i] != streams["burst"][i]:
+                k = first_difference(streams[kind][i], streams["burst"][i])
+                raise AssertionError(f"qwen3-1.7b {tag}: stream {i} {kind} parts from the "
+                                     f"batch of {G2_BATCH} in bursts at token {k}")
+    log(f"  qwen3-1.7b {tag}: {G2_BATCH} greedy streams ({walk} at G 2) the same in a batch "
+        f"of {G2_BATCH} in bursts, per token and alone; streams {list(G2_CHECKED)} pass the greedy "
+        f"check (gap {out['greedy_gap']:.4f})")
+    return out
+
+
+def window_trim_check(bound_pages: int, seen: dict):
+    """An ``after_step`` that holds every running sequence with at least two
+    generated tokens (a newly activated row is trimmed at its next decode
+    pass) to ``bound_pages`` non-trash pages, recording the largest count
+    in ``seen["max_pages"]``."""
+    def check(engine):
+        trash = engine.cache_cfg.trash_page
+        for st in engine.running.values():
+            if st.n_generated < 2:
+                continue
+            held = sum(p != trash for p in engine.alloc.pages_of(st.request.request_id))
+            seen["max_pages"] = max(seen.get("max_pages", 0), held)
+            if held > bound_pages:
+                raise AssertionError(f"{st.request.request_id} holds {held} pages at length "
+                                     f"{len(st.tokens)}, beyond {bound_pages}")
+    return check
+
+
+def serve_window_leg(params, kv_dtype: str, card: str, qwen8_step: dict) -> dict:
+    """mistral-7b at full width (32 layers, no QK-norm, window 4096) through
+    ``engine serve``'s ``engine_from_args`` at ``--max-model-len 8192
+    --tokens-per-step 512`` on ``kv_dtype`` pages: four prompts of
+    4500…6000 token ids chunked through the walks and WINDOW_TOKENS greedy
+    tokens each, on the CLI's burst engine, a ``--decode-burst 1`` engine
+    and a ``--speculative-ngram 4`` engine; all three must serve the same
+    tokens, every token must pass the greedy check against a windowed
+    :func:`plain_forward`, after every step each decoding sequence must
+    hold at most ``ceil(4096 / 128) + 1 + span`` real pages, pages must
+    have been trimmed and the pool must drain.  The per-token engine's
+    decode step (four rows at ~4600-6200 tokens) is profiled mid-run, and
+    :func:`profile_decode` runs on it at phase 4's shape beside qwen3-8b's
+    figure there."""
+    import torch
+
+    from fusioninfer_tpu_torch import cli
+    from fusioninfer_tpu_torch.engine.server import engine_from_args
+    from fusioninfer_tpu_torch.models.config import get_preset
+
+    cfg = get_preset("mistral-7b")
+    prompts = random_prompts(WINDOW_PROMPTS, cfg.vocab_size, salt=12)
+    tag = "int8" if kv_dtype == "int8" else "bf16"
+    base = ["engine", "serve", "mistral-7b", "--max-model-len", str(WINDOW_MAX_LEN),
+            "--tokens-per-step", str(TOKENS_PER_STEP)] + (
+        ["--kv-cache-dtype", "int8"] if kv_dtype == "int8" else [])
+    walk = "ragged_paged_attention_kvsplit" + ("_int8" if kv_dtype == "int8" else "")
+    out: dict = {"tag": tag, "walk": walk}
+    streams = {}
+    for kind, extra in (("burst", []), ("step", ["--decode-burst", "1"]),
+                        ("spec", ["--speculative-ngram", str(SPEC_K)])):
+        engine = engine_from_args(cli.build_parser().parse_args(base + extra), params=params)
+        if engine.cfg.sliding_window != WINDOW or engine.kv_splits == 0:
+            raise AssertionError(f"mistral-7b {tag} {kind}: unexpected engine")
+        span = max(engine.burst_steps, 1 + (engine.spec_k or 0))
+        bound_pages = -(-WINDOW // engine.cache_cfg.page_size) + 1 + span
+        seen: dict = {}
+        prof: dict = {}
+
+        def profile_mid(engine, prof=prof):
+            figures, outputs = profile_steps(engine)
+            prof.update(figures)
+            return outputs
+
+        def decoding(engine):  # every row decodes, none has finished
+            return (engine.num_running == len(prompts) and not engine.prefilling
+                    and min(st.n_generated for st in engine.running.values()) > 8)
+
+        t0 = time.perf_counter()
+        streams[kind], leg = leg_launches(lambda: run_streams(
+            engine, prompts, WINDOW_TOKENS, after_step=window_trim_check(bound_pages, seen),
+            hook_when=decoding if kind == "step" else None,
+            hook=profile_mid if kind == "step" else None))
+        wall = time.perf_counter() - t0
+        trimmed = engine.window_pages_trimmed_total
+        usage = engine.kv_cache_usage()
+        if leg["launches"][walk] == 0 or trimmed == 0 or usage != 0.0:
+            raise AssertionError(f"mistral-7b {tag} {kind}: {walk} launches "
+                                 f"{leg['launches'][walk]}, pages trimmed {trimmed}, pool "
+                                 f"usage {usage} after the run")
+        out[kind] = {**leg, "wall_s": wall, "pages_trimmed": trimmed,
+                     "max_pages_held": seen["max_pages"], "page_bound": bound_pages,
+                     "spec_accepted": engine.spec_accepted_total,
+                     "spec_proposed": engine.spec_proposed_total}
+        log(f"  mistral-7b {tag}, {kind} engine: 4 x {WINDOW_TOKENS} tokens after prompts of "
+            f"{', '.join(map(str, WINDOW_PROMPTS))} in {wall:.3f} s; {trimmed} pages freed by "
+            f"trim_window, at most {seen['max_pages']} real pages a decoding sequence (bound "
+            f"{bound_pages}), pool drained"
+            + (f"; drafts accepted {engine.spec_accepted_total}/{engine.spec_proposed_total}"
+               if kind == "spec" else ""))
+        if kind == "burst":
+            t0 = time.perf_counter()
+            out["greedy_gap"] = max(check_greedy_ids(engine, prompts[i], streams[kind][i],
+                                                     paged_prompt=True)
+                                    for i in range(len(prompts)))
+            out["greedy_check_s"] = time.perf_counter() - t0
+        if kind == "step":
+            out["window_profile"] = dict(prof)
+        del engine
+        release_device()
+    # phase 4's decode-step profile (8 rows, contexts 100..1500, as phases 4-6
+    # serve: no prefix cache, no token budget) on the same weights
+    engine = engine_from_args(cli.build_parser().parse_args(
+        base[:5] + ["--no-token-budget", "--no-prefix-caching", "--decode-burst", "1"]
+        + base[7:]), params=params)
+    out["decode_profile"] = profile_decode(engine)
+    del engine
+    release_device()
+    p, d = out["window_profile"], out["decode_profile"]
+    log(f"  mistral-7b {tag} decode step, 4 rows at 4600..6250 tokens (window {WINDOW}): "
+        f"{p['wall_ms_per_step']:.3f} ms wall, {p['cpu_ms_per_step']:.3f} ms thread CPU, "
+        f"{p['device_ms_per_step']:.3f} ms device, {p['kernels_per_step']:.1f} launches a "
+        f"step; at phase 4's shape (8 rows, contexts 100..1500): "
+        f"{d['wall_ms_per_step']:.3f} ms wall, {d['device_ms_per_step']:.3f} ms device, "
+        f"against qwen3-8b's {qwen8_step['device_ms_per_step']:.3f} ms there at 4096, on "
+        f"{card}")
+    for kind in ("step", "spec"):
+        for i in range(len(prompts)):
+            if streams[kind][i] != streams["burst"][i]:
+                k = first_difference(streams[kind][i], streams["burst"][i])
+                raise AssertionError(f"mistral-7b {tag}: stream {i} on the {kind} engine "
+                                     f"parts from the burst engine's at token {k}")
+    log(f"  mistral-7b {tag}: burst, per-token and speculative streams the same; every "
+        f"token passes the windowed greedy check (gap {out['greedy_gap']:.4f}, "
+        f"{out['greedy_check_s']:.1f} s)")
+    return out
+
+
+def serve_loader_leg(params, card: str) -> dict:
+    """The port's ``save_hf_checkpoint`` writes mistral-7b's widths at
+    LOADER_LAYERS layers (the first layers of ``params``) into a
+    temporary directory under ``build/``, removed afterwards; ``engine
+    serve --load-hf DIR`` serves two SSE requests from it through the
+    HTTP server, under the checkpoint's model name; their tokens must
+    equal those of an engine built alike from the parameters in memory,
+    and the loaded tensors must equal them bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fusioninfer_tpu_torch import cli
+    from fusioninfer_tpu_torch.engine.engine import NativeEngine
+    from fusioninfer_tpu_torch.engine.server import EngineServer, engine_from_args
+    from fusioninfer_tpu_torch.models.config import get_preset
+    from fusioninfer_tpu_torch.models.loader import save_hf_checkpoint
+    from fusioninfer_tpu_torch.ops import dispatch
+
+    cfg = dataclasses.replace(get_preset("mistral-7b"), n_layers=LOADER_LAYERS)
+    small = {**{k: v for k, v in params.items() if k != "layers"},
+             "layers": {k: v[:LOADER_LAYERS] for k, v in params["layers"].items()}}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = tempfile.mkdtemp(prefix="hf-checkpoint-", dir=os.path.join(ROOT, "build"))
+
+    def serve(engine) -> list[dict]:
+        server = EngineServer(engine, host="127.0.0.1", port=0)
+        server.start()
+        try:
+            return [{**_post(server.port, {"prompt": text, "max_tokens": MAX_TOKENS,
+                                           "temperature": 0.0, "stream": True}, stream=True),
+                     "model": server.model_name} for text in LOADER_PROMPTS]
+        finally:
+            server.stop()
+
+    try:
+        t0 = time.perf_counter()
+        save_hf_checkpoint(path, cfg, small)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        args = cli.build_parser().parse_args(
+            ["engine", "serve", "--load-hf", path, "--max-model-len", str(WINDOW_MAX_LEN),
+             "--tokens-per-step", str(TOKENS_PER_STEP)])
+        t0 = time.perf_counter()
+        dispatch.reset_launches()
+        engine = engine_from_args(args)
+        load_s = time.perf_counter() - t0
+        if engine.cfg != cfg:
+            raise AssertionError(f"loaded config {engine.cfg} is not {cfg}")
+        for key in ("embed", "final_norm", "lm_head"):
+            if not torch.equal(engine.params[key], small[key]):
+                raise AssertionError(f"loaded {key} differs from the parameters written")
+        for key, w in small["layers"].items():
+            if not torch.equal(engine.params["layers"][key], w):
+                raise AssertionError(f"loaded layers.{key} differs from the parameters written")
+        loaded = serve(engine)
+        leg = {"launches": dispatch.launches(),
+               "launches_by_shape": dispatch.launches(by_shape=True)}
+        settings = dict(max_batch_size=engine.max_batch_size, token_budget=engine.token_budget,
+                        decode_burst_steps=engine.burst_steps, device=engine.device)
+        cache_cfg = engine.cache_cfg
+        del engine
+        release_device()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    engine = NativeEngine(cfg, cache_cfg, params=small, **settings)
+    memory = serve(engine)
+    del engine
+    release_device()
+    for a, b in zip(loaded, memory):
+        if a["model"] != "mistral-7b" or a["tokens"] != MAX_TOKENS:
+            raise AssertionError(f"--load-hf served {a['tokens']} tokens as {a['model']!r}")
+        if a["token_ids"] != b["token_ids"]:
+            raise AssertionError(f"--load-hf tokens part from the in-memory engine's at token "
+                                 f"{first_difference(a['token_ids'], b['token_ids'])}")
+    log(f"  mistral-7b widths at {LOADER_LAYERS} layers: wrote {nbytes / 1e9:.3f} GB of "
+        f"safetensors in {write_s:.2f} s, engine serve --load-hf built in {load_s:.2f} s "
+        f"(tensors equal to those written); two SSE requests served as 'mistral-7b', tokens "
+        f"equal to the in-memory engine's; TTFT {[round(r['ttft_s'], 4) for r in loaded]} s "
+        f"on {card}")
+    return {**leg, "bytes": nbytes, "write_s": write_s, "load_s": load_s,
+            "ttft_s": [r["ttft_s"] for r in loaded]}
+
+
 def kernel_row(name: str, source: str, replaces: int, launches: int, res: dict) -> dict:
     return {"name": name, "route": "cuda", "source": f"fusioninfer_tpu_torch/csrc/{source}",
             "replaces": f"fusioninfer_tpu/ops/{replaces}", "launches": launches,
@@ -2965,16 +3642,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/11] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    log(f"[1/14] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     _build.build_all()
-    log(f"[2/11] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
+    log(f"[2/14] build: {len(_build.SIGNATURES)} sources in {_build.build_seconds:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log(f"[3/11] kernels against their plain versions (bf16 and int8 pages, |err| <= "
+    log(f"[3/14] kernels against their plain versions (bf16 and int8 pages, |err| <= "
         f"{RTOL}·|ref| + row_tol·rms(row), row_tol {FLASH_ROW_TOL} flash / {PAGED_ROW_TOL} "
         f"page walks and decode / {WINDOW_ROW_TOL} prefill and verify; times: median "
         f"CUDA-event ms on {card})")
@@ -3054,8 +3731,13 @@ def main() -> int:
         f"{SPEC_K} drafts (both walks, bf16 and int8, single walk at CL {spec_cl})")
     del cases
     torch.cuda.empty_cache()
+    log("  the shapes of qwen3-1.7b (D 2048, H16 on KV8: G 2, the tied 151936-column head, "
+        "32 decode rows) and mistral-7b (no QK-norm, its MLP and head, the 4096 window over "
+        "trimmed tables)")
+    new_shapes = check_new_shapes(gen)
+    torch.cuda.empty_cache()
 
-    log("[4/11] serve qwen3-8b at full width, max-model-len 4096")
+    log("[4/14] serve qwen3-8b at full width, max-model-len 4096")
     cfg = get_preset("qwen3-8b")
     t0 = time.perf_counter()
     # phases 4-6 serve as the earlier slices did: no prefix cache, no token
@@ -3078,7 +3760,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[5/11] single page walk: same weights, max-model-len 2048")
+    log("[5/14] single page walk: same weights, max-model-len 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda",
                                                  prefix_caching=False),
                           max_batch_size=8, params=params, device="cuda", **legacy)
@@ -3093,7 +3775,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log("[6/11] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
+    log("[6/14] int8 KV pages (--kv-cache-dtype int8): same weights, max-model-len 4096, "
         "then 2048")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 4096, 8, "cuda", "int8",
                                                  prefix_caching=False),
@@ -3116,7 +3798,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[7/11] prefix caching, chunked prefill and fused steps (the serve defaults, "
+    log(f"[7/14] prefix caching, chunked prefill and fused steps (the serve defaults, "
         f"--tokens-per-step {TOKENS_PER_STEP}): same weights, bf16 pages at 4096 (split "
         "walk) and 2048 (single walk), int8 pages at 2048")
     serve7 = {}
@@ -3134,7 +3816,7 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
-    log(f"[8/11] speculative decoding (--speculative-ngram {SPEC_K}), extractive prompts, "
+    log(f"[8/14] speculative decoding (--speculative-ngram {SPEC_K}), extractive prompts, "
         f"greedy then seeded sampled, against the same engine without speculation: same "
         f"weights, bf16 pages at 4096 (split walk) and 2048 (single walk), int8 pages at "
         f"2048")
@@ -3153,7 +3835,7 @@ def main() -> int:
 
         serve8[tag] = serve_spec_leg(make_engine, tag, card, extras=tag == "bf16_4096")
 
-    log(f"[9/11] decode bursts (--decode-burst {BURST}, pipelined, CUDA graphs): a greedy "
+    log(f"[9/14] decode bursts (--decode-burst {BURST}, pipelined, CUDA graphs): a greedy "
         f"and a seeded request alone, in a full batch and beside a {A1_LONG}-token chunked "
         f"prompt on burst, per-token and fused-step engines (no prefix cache, "
         f"--tokens-per-step {TOKENS_PER_STEP}); graph against eager; steady-state "
@@ -3178,7 +3860,7 @@ def main() -> int:
                                       extras=tag == "bf16_4096")
     serve9["cli_defaults"] = serve_burst_defaults(params, card)
 
-    log(f"[10/11] guided decoding (response_format json_object and json_schema, greedy and "
+    log(f"[10/14] guided decoding (response_format json_object and json_schema, greedy and "
         f"seeded) beside bursting unguided streams, through the server: same weights, bf16 "
         f"pages at 2048, --decode-burst {BURST}")
     engine = NativeEngine(cfg, auto_cache_config(cfg, 128, 2048, 8, "cuda",
@@ -3187,8 +3869,36 @@ def main() -> int:
                           enable_prefix_caching=False, token_budget=TOKENS_PER_STEP,
                           decode_burst_steps=BURST)
     serve10 = serve_guided_leg(engine, card)
-    del engine
-    torch.cuda.empty_cache()
+    del engine, params
+    release_device()
+    log(f"  device memory held before phase 11: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    log(f"[11/14] qwen3-1.7b at full width (28 layers, tied head, G 2), --max-batch-size "
+        f"{G2_BATCH}: {G2_BATCH} greedy streams in bursts, per token and alone; bf16 pages at "
+        "4096 (split walk), int8 pages at 2048 (single walk)")
+    from fusioninfer_tpu_torch.models.transformer import init_params
+
+    cfg17 = get_preset("qwen3-1.7b")
+    params17 = init_params(cfg17, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    serve11 = {f"{'int8' if kv == 'int8' else 'bf16'}_{ml}": serve_g2_leg(params17, kv, ml, card)
+               for kv, ml in (("model", 4096), ("int8", 2048))}
+    del params17
+    release_device()
+
+    log(f"[12/14] mistral-7b at full width (32 layers, window {WINDOW}), --max-model-len "
+        f"{WINDOW_MAX_LEN} --tokens-per-step {TOKENS_PER_STEP}: four prompts of 4500-6000 "
+        f"tokens and {WINDOW_TOKENS} greedy tokens each on burst, per-token and speculative "
+        "engines; bf16 and int8 pages")
+    cfg7 = get_preset("mistral-7b")
+    params7 = init_params(cfg7, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    serve12 = {("int8" if kv == "int8" else "bf16"): serve_window_leg(params7, kv, card, prof4)
+               for kv in ("model", "int8")}
+
+    log(f"[13/14] the loader: save_hf_checkpoint of mistral-7b's widths at {LOADER_LAYERS} "
+        "layers, engine serve --load-hf")
+    serve13 = serve_loader_leg(params7, card)
+    del params7
+    release_device()
 
     pa_py = "paged_attention.py"
     legs = [serve4, serve5, serve6, serve6s, *serve7.values(),
@@ -3197,7 +3907,13 @@ def main() -> int:
             *({"launches": leg["launches"][kind],
                "launches_by_shape": leg["launches_by_shape"][kind]}
               for leg in serve9.values() if "streams" in leg for kind in leg["launches"]),
-            serve9["cli_defaults"], serve10]
+            serve9["cli_defaults"], serve10,
+            *(leg[kind] for leg in serve11.values() for kind in ("burst", "step", "alone")),
+            *(leg[kind] for leg in serve12.values() for kind in ("burst", "step", "spec")),
+            serve13]
+
+    def phase_served(name, phase_legs):  # launches over some legs
+        return sum(leg["launches"][name] for leg in phase_legs)
 
     def served(name):  # launches over every serve leg
         return sum(leg["launches"][name] for leg in legs)
@@ -3217,8 +3933,9 @@ def main() -> int:
         if sum(shapes[name].values()) != served(name):
             raise AssertionError(f"{name}: launches by shape {shapes[name]} do not add up to "
                                  f"{served(name)}")
-    gemm_names = {f"{K}x{N}": name for name, (K, N) in GEMM_SHAPES.items()}
-    log("  launches over phases 4-10 by shape: gemm " + ", ".join(
+    gemm_names = {f"{K}x{N}": name for name, (K, N) in {**GEMM_SHAPES,
+                                                         **GEMM_SHAPES_NEW}.items()}
+    log("  launches over phases 4-13 by shape: gemm " + ", ".join(
         f"{gemm_names.get(k, k)} {n}" for k, n in sorted(shapes["gemm"].items()))
         + "; rms_norm " + ", ".join(f"D{k} {n}" for k, n in sorted(shapes["rms_norm"].items()))
         + "; add_rms_norm " + ", ".join(f"D{k} {n}"
@@ -3273,6 +3990,49 @@ def main() -> int:
                         "launches": served(name),
                         **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")}})
+    legs11 = {tag: [leg[kind] for kind in ("burst", "step", "alone")]
+              for tag, leg in serve11.items()}
+    legs12 = {tag: [leg[kind] for kind in ("burst", "step", "spec")]
+              for tag, leg in serve12.items()}
+    gemm_py = f"{tf_py}:{JAX_DOT_LINE}"
+    for name, source, at, launched, res in (
+            ("flash_attention (G2)", "flash_attention.cu", f"fusioninfer_tpu/ops/"
+             "flash_attention.py:150", phase_served("flash_attention", sum(legs11.values(), [])),
+             new_shapes["flash"]["g2"]),
+            ("flash_attention (window 4096)", "flash_attention.cu", "fusioninfer_tpu/ops/"
+             "flash_attention.py:150", phase_served("flash_attention", [serve13]),
+             new_shapes["flash"]["window"]),
+            ("ragged_paged_attention_kvsplit (G2)", "paged_attention.cu",
+             f"fusioninfer_tpu/ops/{pa_py}:1505",
+             phase_served("ragged_paged_attention_kvsplit", legs11["bf16_4096"]),
+             new_shapes["walks_g2"]["split_bf16"]),
+            ("ragged_paged_attention_int8 (G2)", "paged_attention.cu",
+             f"fusioninfer_tpu/ops/{pa_py}:1250",
+             phase_served("ragged_paged_attention_int8", legs11["int8_2048"]),
+             new_shapes["walks_g2"]["single_int8"]),
+            ("ragged_paged_attention_kvsplit (window 4096)", "paged_attention.cu",
+             f"fusioninfer_tpu/ops/{pa_py}:1505",
+             phase_served("ragged_paged_attention_kvsplit", legs12["bf16"]),
+             new_shapes["walks_window"]["split_bf16_decode"]),
+            ("ragged_paged_attention_kvsplit_int8 (window 4096)", "paged_attention.cu",
+             f"fusioninfer_tpu/ops/{pa_py}:1505",
+             phase_served("ragged_paged_attention_kvsplit_int8", legs12["int8"]),
+             new_shapes["walks_window"]["split_int8_decode"]),
+            ("gemm (tied head 2048x151936)", "gemm.cu", gemm_py,
+             sum(leg["launches_by_shape"].get("gemm[2048x151936]", 0)
+                 for leg in sum(legs11.values(), [])),
+             new_shapes["gemm"]["1.7b tied head"]["rows"][32]),
+            ("gemm (mistral-7b gate/up 4096x14336)", "gemm.cu", gemm_py,
+             sum(leg["launches_by_shape"].get("gemm[4096x14336]", 0)
+                 for leg in sum(legs12.values(), [])),
+             new_shapes["gemm"]["7b gate/up"]["rows"][8])):
+        if launched == 0:
+            raise AssertionError(f"{name}: no launch on phases 11-13")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"fusioninfer_tpu_torch/csrc/{source}", "replaces": at,
+                        "launches": launched,
+                        **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}})
     for pages, res in split_serve.items():
         leg = serve4 if pages == "bf16" else serve6
         name = "ragged_paged_attention_kvsplit" + ("_int8" if pages == "int8" else "")
@@ -3300,10 +4060,12 @@ def main() -> int:
                    "spec_bits_rows": spec_bits, "spec_cluster": spec_cl,
                    "spec_legs": serve8, "burst_legs": serve9, "guided_leg": serve10,
                    "gemm": gemms, "rms_norm": norms, "fused_norms": fused_norms,
+                   "new_shapes": new_shapes, "qwen3_1_7b": serve11, "mistral_7b": serve12,
+                   "loader": serve13,
                    "launches_by_shape": shapes,
                    "walk_launches_by_tokens": walk_classes,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[11/11] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[14/14] done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 """Command line of the PyTorch/CUDA port.
 
-    python -m fusioninfer_tpu_torch.cli engine serve qwen3-8b \\
+    python -m fusioninfer_tpu_torch.cli engine serve [PRESET | --load-hf DIR] \\
         [--device cuda] [--max-model-len 4096] [--kv-cache-dtype int8] \\
         [--no-prefix-caching] [--prefill-chunk-size N] \\
         [--tokens-per-step N | --no-token-budget] [--no-fused-step] \\
@@ -8,7 +8,9 @@
         [--port 8000] [--seed 0]
 
 ``engine serve`` runs on the card unless ``--device cpu`` is given; with
-no CUDA device it raises instead of falling back to the CPU.
+no CUDA device it raises instead of falling back to the CPU.  It serves a
+preset with random weights from ``--seed``, or with ``--load-hf DIR`` a
+HuggingFace safetensors checkpoint under the name its config gives.
 """
 
 from __future__ import annotations
@@ -19,13 +21,20 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from fusioninfer_tpu_torch.models.config import list_presets
+
     p = argparse.ArgumentParser(prog="fusioninfer-tpu-torch", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
     engine = sub.add_parser("engine", help="inference engine on PyTorch/CUDA")
     esub = engine.add_subparsers(dest="subcommand", required=True)
     serve = esub.add_parser("serve", help="serve an OpenAI-compatible API")
     serve.add_argument("model", nargs="?", default="qwen3-tiny",
-                       help="model preset (qwen3-tiny, qwen3-8b)")
+                       help=f"model preset ({', '.join(list_presets())}), "
+                            "served with random weights from --seed")
+    serve.add_argument("--load-hf", default="", metavar="DIR",
+                       help="serve the HuggingFace safetensors checkpoint "
+                            "(*.safetensors + config.json) under DIR, "
+                            "named by its config; not with a preset")
     serve.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu runs the plain "
                             "PyTorch path)")

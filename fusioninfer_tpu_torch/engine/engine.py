@@ -61,6 +61,13 @@ sequence one token per :meth:`NativeEngine.step`.  As in the JAX engine:
   the same pass.
   With ``pipeline_bursts`` the successor burst is dispatched from the
   device-side control carry before the current one's tokens are read.
+* **Sliding windows** (``cfg.sliding_window``): the walks start at the
+  page that holds a query's first visible key, so a decoding row's pages
+  wholly below its window are given back
+  (:meth:`PageAllocator.trim_window`) before it asks for new ones, and
+  before a successor burst is priced, and a sequence holds about a
+  window of pages however long it runs.  Preempted windowed rows are
+  not parked in the prefix cache (their tables hold trash placeholders).
 * **Row-invariant forwards**: on the card every projection and norm
   reduces a row in an order fixed by the weight's shape (:mod:`ops.gemm`,
   :mod:`ops.rms_norm`) and the walks' per-token bits do not depend on
@@ -70,9 +77,7 @@ sequence one token per :meth:`NativeEngine.step`.  As in the JAX engine:
 
 Left out, and absent rather than switched off: LoRA,
 SLO tiers and priorities (the wait queue orders by arrival), deadlines,
-the host KV tier and the PD/KV fabric.  Decode bursts on a
-sliding-window model wait for its page trimming and raise at
-construction.
+the host KV tier and the PD/KV fabric.
 
 Concurrency: one engine-loop thread owns all scheduling state and is the
 only caller of :meth:`step`; other threads enter only through the locked
@@ -352,9 +357,6 @@ class NativeEngine:
         self.proposer = NgramProposer() if speculative_k else None
         if decode_burst_steps < 1:
             raise ValueError("decode_burst_steps must be >= 1")
-        if decode_burst_steps > 1 and cfg.sliding_window is not None:
-            raise ValueError("decode bursts on a sliding-window model need "
-                             "its page trimming, which is not ported yet")
         self.burst_steps = decode_burst_steps
         self.pipeline_bursts = pipeline_bursts
         # the dispatched burst whose tokens are not read yet: (handle,
@@ -387,6 +389,8 @@ class NativeEngine:
         # finish mid-window discards the rest)
         self.spec_proposed_total = 0
         self.spec_accepted_total = 0
+        # pages a sliding window gave back while its rows decoded
+        self.window_pages_trimmed_total = 0
 
     # -- public API ----------------------------------------------------------
 
@@ -734,7 +738,9 @@ class NativeEngine:
         the release as evictable content and the resume recomputes at
         most the last partial page.  ``written`` counts the positions
         whose KV is in the pages (a running victim's last sampled token
-        is not yet).  Returns the pages parked."""
+        is not yet).  A sliding-window engine parks nothing: its trimmed
+        tables break the page-to-block alignment the chain needs.
+        Returns the pages parked."""
         if not self.prefix_caching or self.cfg.sliding_window is not None:
             return 0
         ps = self.cache_cfg.page_size
@@ -1272,6 +1278,10 @@ class NativeEngine:
         dispatched, and never preempts anyone."""
         extra, plan = 0, []
         for st in snapshot.values():
+            # a windowed row gives back its pages below the successor's
+            # window before the pricing: this chained path skips
+            # _ensure_decode_capacity, whose trim would come too late
+            self._trim_window(st, len(st.tokens) + span)
             rem_after = st.request.params.max_tokens - st.n_generated - span
             if rem_after < 1:
                 continue  # finishes in flight; its overrun writes go to trash
@@ -1497,6 +1507,9 @@ class NativeEngine:
             st = self.running.get(slot)
             if st is None or st.n_generated >= st.request.params.max_tokens:
                 continue
+            # trim BEFORE asking for pages: a page newly below the window
+            # may be the very one this step needs
+            self._trim_window(st, len(st.tokens))
             while True:
                 try:
                     # input token occupies index len-1 -> len tokens covered
@@ -1523,6 +1536,17 @@ class NativeEngine:
                         finished=True, finish_reason="error:kv_capacity"))
                     break
         return failures, span
+
+    def _trim_window(self, st: _SeqState, length: int) -> None:
+        """A windowed row whose next query sees keys from ``length -
+        window`` on gives back the pages wholly below that key (the walks
+        start at page ``(length - window) // page_size``); counted in
+        ``window_pages_trimmed_total``.  A full-attention model keeps
+        every page."""
+        window = self.cfg.sliding_window
+        if window is not None and length > window:
+            self.window_pages_trimmed_total += self.alloc.trim_window(
+                st.request.request_id, (length - window) // self.cache_cfg.page_size)
 
     # -- bookkeeping ---------------------------------------------------------
 

@@ -20,6 +20,12 @@ before capture; then
 it captures with the same inert controls.  A capture that fails raises:
 nothing on the card falls back to the eager loop.
 
+The page tables are a static input refilled before every replay, so a
+sliding-window model's tables, whose entries below each row's window
+turn into trash placeholders as its pages are trimmed between replays,
+need no graph of their own: the key stays ``(span, mode)``, and the
+graphs are captured at the engine's ``max_batch_size`` rows.
+
 Launch counts: a capture launches nothing, so the counts its wrappers
 add are taken back, and each replay adds them again
 (:func:`ops.dispatch.count_launches`), one per kernel launch the graph

@@ -7,7 +7,10 @@ pools ``[n_layers, n_kv_heads, n_pages, 1, page_size]`` (k_scale,
 v_scale) hold one scale per (token, head).
 The last page is the reserved "trash" page padded positions write to.
 Host side: a free-list allocator; allocation never touches the device.
-Prefix caching (``engine/prefix_cache.py``) subclasses it through the
+A sliding-window model's pages wholly below its window are given back as
+it decodes (:meth:`PageAllocator.trim_window`), their table entries
+turned into trash-page placeholders.  Prefix caching
+(``engine/prefix_cache.py``) subclasses it through the
 :meth:`PageAllocator._drop_page_ref` and :meth:`PageAllocator.can_admit`
 hooks.
 """
@@ -144,6 +147,7 @@ class PageAllocator:
         self.cache_cfg = cache_cfg
         self._free: list[int] = list(range(cache_cfg.n_pages - 1))
         self._owned: dict[str, list[int]] = {}
+        self._trim_mark: dict[str, int] = {}  # seq -> pages already trimmed
 
     @property
     def free_pages(self) -> int:
@@ -207,9 +211,35 @@ class PageAllocator:
         caching allocator unrefs shared pages here instead of freeing."""
         self._free.append(page)
 
+    def trim_window(self, seq_id: str, first_live_page: int) -> int:
+        """Sliding-window reclamation: drop the pages wholly below the
+        window (indices < ``first_live_page``), leaving trash-page
+        placeholders so that table positions keep their mapping.  The
+        walks start at the window's first live page, so a trimmed entry is
+        never read.  A per-sequence watermark makes the per-step call
+        O(pages newly below the window).  Returns the pages dropped."""
+        pages = self._owned.get(seq_id)
+        if not pages:
+            return 0
+        trash = self.cache_cfg.trash_page
+        start = self._trim_mark.get(seq_id, 0)
+        end = min(first_live_page, len(pages))
+        freed = 0
+        for i in range(start, end):
+            if pages[i] != trash:
+                self._drop_page_ref(pages[i])
+                pages[i] = trash
+                freed += 1
+        if end > start:
+            self._trim_mark[seq_id] = end
+        return freed
+
     def release(self, seq_id: str) -> None:
+        trash = self.cache_cfg.trash_page
+        self._trim_mark.pop(seq_id, None)
         for page in self._owned.pop(seq_id, []):
-            self._drop_page_ref(page)
+            if page != trash:
+                self._drop_page_ref(page)
 
     def page_table_row(self, seq_id: str) -> np.ndarray:
         """Fixed-width page table row, trash-padded."""

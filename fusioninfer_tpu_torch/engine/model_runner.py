@@ -221,6 +221,12 @@ def decode_burst(cfg: ModelConfig, cache_cfg: CacheConfig, params: dict,
     past the table.  Rows that finish mid-burst keep decoding until it
     ends; the engine discards those tokens.
 
+    On a sliding-window model a row's table entries below page ``(len -
+    window) // page_size`` (``len`` its length at dispatch) are trash
+    placeholders: every page this burst touches lies at or above it, a
+    step's write at its own position (``>= len - 1``) and its walk from
+    the page of key ``pos - window + 1``.
+
     ``next_ctl_i`` carries the advanced tokens, positions and
     ``gen_count`` (other columns copied): a successor burst dispatches
     from it without a host round trip.  Nothing is read back to the

@@ -189,7 +189,9 @@ class PrefixCachingAllocator(PageAllocator):
     def _drop_page_ref(self, page: int) -> None:
         """One owner lets go of ``page``: unref shared or hashed pages
         (keeping their content as evictable at zero references), free
-        private ones."""
+        private ones.  The base class's ``trim_window`` and ``release``
+        route every drop through here, so a windowed sequence's trimmed
+        pages keep the sharing semantics."""
         if page in self._refs:
             self._refs[page] -= 1
             if self._refs[page] <= 0:

@@ -494,13 +494,24 @@ def engine_from_args(args, params: dict | None = None) -> NativeEngine:
     ``--no-decode-pipeline``.  The split walk engages from the static
     cache config, and ``--kv-cache-dtype int8`` makes the pages int8.
     ``params``: weights already on the device (None draws them from
-    ``--seed``)."""
+    ``--seed``).  ``--load-hf DIR`` loads a HuggingFace checkpoint instead
+    (:func:`models.loader.load_hf_checkpoint`), whose config names the
+    served model; it excludes a preset other than the default."""
     from fusioninfer_tpu_torch.engine.engine import resolve_device
     from fusioninfer_tpu_torch.engine.kv_cache import auto_cache_config
     from fusioninfer_tpu_torch.models.config import get_preset
 
     device = resolve_device(args.device)
-    cfg = get_preset(args.model)
+    if args.load_hf:
+        if args.model != "qwen3-tiny":
+            raise SystemExit(f"--load-hf serves the checkpoint's model; drop the preset "
+                             f"{args.model!r}")
+        from fusioninfer_tpu_torch.models.loader import load_hf_checkpoint
+
+        cfg, params = load_hf_checkpoint(args.load_hf, device=device)
+        logger.info("loaded %s (%d layers) from %s", cfg.name, cfg.n_layers, args.load_hf)
+    else:
+        cfg = get_preset(args.model)
     kv_dtype = "int8" if args.kv_cache_dtype == "int8" else "model"
     prefix_caching = not args.no_prefix_caching
     cache_cfg = auto_cache_config(cfg, args.page_size, args.max_model_len,

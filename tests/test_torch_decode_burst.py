@@ -17,7 +17,9 @@
 
 Float32 ``qwen3-tiny``, weights through ``convert.params_from_jax``; the
 JAX engine runs with ``fused_sampling=False``, the port's one sampling
-path.  LoRA and sliding-window bursts are not ported.
+path.  LoRA is not ported; windowed bursts are held in
+``test_torch_window_reclaim.py`` (and here against a windowed JAX burst
+engine).
 """
 
 import dataclasses
@@ -214,15 +216,26 @@ class TestBurstFallbacks:
 
     @pytest.mark.parametrize("bad", ["zero", "window"])
     def test_burst_rejects_bad_config(self, weights, bad):
-        _, ct, _, pt = weights
+        """A span below 1 is refused.  A sliding window is not a bad config
+        any more: its bursts trim pages below the window, and a windowed
+        burst engine serves the JAX windowed burst engine's stream."""
+        cj, ct, pj, pt = weights
         if bad == "zero":
             with pytest.raises(ValueError):
                 _port(weights, 0)
             return
-        windowed = dataclasses.replace(ct, sliding_window=24)
-        with pytest.raises(ValueError, match="sliding-window"):
-            teng.NativeEngine(windowed, tkv.CacheConfig(**CACHE), params=pt, device="cpu",
-                              max_batch_size=4, decode_burst_steps=8)
+        te = teng.NativeEngine(dataclasses.replace(ct, sliding_window=24),
+                               tkv.CacheConfig(**CACHE), params=pt, device="cpu",
+                               max_batch_size=4, decode_burst_steps=8)
+        je = jeng.NativeEngine(dataclasses.replace(cj, sliding_window=24),
+                               jkv.CacheConfig(**CACHE), params=pj, max_batch_size=4,
+                               fused_sampling=False, decode_burst_steps=8)
+        reqs = [_greedy("w", [2, 4, 6], 40)]
+        ours, _ = _drive(te, teng.Request, tsamp.SamplingParams, reqs)
+        ref, _ = _drive(je, jeng.Request, jsamp.SamplingParams, reqs)
+        assert ours == ref and len(ours["w"]) == 40
+        assert te.sched.snapshot() == je.sched.snapshot()
+        assert te.sched.burst_span_steps[8] > 0 and te.window_pages_trimmed_total > 0
 
 
 class TestBurstPipelining:

@@ -1,8 +1,10 @@
-"""The PyTorch port stands alone: no JAX, nothing of ``fusioninfer_tpu``.
+"""The PyTorch port stands alone: no JAX, nothing of ``fusioninfer_tpu``,
+no ``safetensors`` (the card's machine has none; the loader reads the
+format itself).
 
 A fresh interpreter imports every module of ``fusioninfer_tpu_torch`` and
-``chip_smoke.py`` and must end with no ``jax*`` and no
-``fusioninfer_tpu.*`` module loaded; an AST scan checks the same
+``chip_smoke.py`` and must end with no ``jax*``, no ``fusioninfer_tpu.*``
+and no ``safetensors*`` module loaded; an AST scan checks the same
 statically, including imports inside functions.  The ctypes bindings of
 the CUDA entry points are checked against their C declarations, since
 the kernels cannot be compiled here.
@@ -39,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
         f"for name in {_module_names()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax')"
-        " or m == 'fusioninfer_tpu' or m.startswith('fusioninfer_tpu.'))\n"
+        " or m == 'fusioninfer_tpu' or m.startswith('fusioninfer_tpu.')"
+        " or m.startswith('safetensors'))\n"
         "print('LEAKED', bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -60,7 +63,7 @@ def test_no_jax_or_reference_imports_in_source(path):
             continue
         for mod in mods:
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "fusioninfer_tpu"), (
+            assert root not in ("jax", "jaxlib", "fusioninfer_tpu", "safetensors"), (
                 f"{path.name}:{node.lineno} imports {mod}")
 
 
